@@ -1,838 +1,268 @@
-"""Benchmark: batched coupled-NR harmonic power flow throughput on TPU.
+"""Benchmark: batched coupled-NR harmonic power flow throughput on the GPU.
 
-Measures end-to-end HPF solves/sec (Ybus + fundamental warm start + coupled
-harmonic NR to convergence, per scenario) for vmapped scenario sweeps on
+Measures end-to-end converged HPF solves/sec (Ybus + fundamental + coupled
+harmonic NR to convergence, per scenario) for scenario sweeps, plus the
+study stages built on them:
 
-- net2 at H<=25 (Jacobian dim 102) — the BASELINE.md headline config, and
-- net1 at H<=25 (20 buses, 7 nonlinear devices, Jacobian dim 518) — the
-  reference's own scale test (hcne.jl:496,505), solved via the structured
-  arrow (block + Woodbury) Newton step.
+- net2 H<=25 (4 buses, 1 device) on the single-program device schedule
+  with the exact-linear warm seed, as one sweep and as a pipelined stream;
+- net1 at H<=25, H<=51 and H<=99 (20 buses, 7 devices, the reference's
+  own scale test, hcne.jl:495-505) on the host-driven adaptive schedule;
+- synthetic feeders of 64 and 128 buses;
+- batched IFT sensitivities, the percentile assessment, the quasi-static
+  time series and the (outage x draw) contingency cross.
 
-Baseline target: 10,000 solves/sec on a v5e-8; per chip that is 1,250/s,
-and vs_baseline is reported against the per-chip share scaled by the local
-device count.  The headline ``value`` counts *converged* solves only
-(raw throughput and convergence rate ride along in the JSON line).
+Every stage runs in every run; any failure exits nonzero.  A run without
+a GPU exits nonzero before measuring anything.  Timing ends in
+``block_until_ready``; the first call of each stage (compilation) is
+untimed.  Prints ONE JSON line naming the platform, device kind, device
+count and the card's name and power limit.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", ...}.
+Run on the card:  python bench.py
 """
 import json
 import os
-import signal
+import subprocess
 import sys
 import time
+from functools import partial
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-# default batch: measured saturation point of the dispatch-bound net2
-# sweep on one v5e chip (round-3 interleaved A/B: 4096 -> 12-16k/s,
-# 16384 -> 20-22k/s, 32768/65536 flat at ~20-21k/s — BENCH_NOTES)
-BATCH = int(os.environ.get("HPFX_BENCH_BATCH", "16384"))
-# net1 saturates ~1150/s at B=2048 (A/B: 512->0.6-1.0k, 1024->1.0-1.15k,
-# 2048->1.14-1.16k; BENCH_NOTES round 3)
-BATCH_NET1 = int(os.environ.get("HPFX_BENCH_BATCH_NET1", "2048"))
-REPEATS = int(os.environ.get("HPFX_BENCH_REPEATS", "5"))
-TIMEOUT_S = int(os.environ.get("HPFX_BENCH_TIMEOUT", "1500"))
-SOLVER_NET2 = os.environ.get("HPFX_BENCH_SOLVER_NET2", "arrow")
-SOLVER_NET1 = os.environ.get("HPFX_BENCH_SOLVER_NET1", "arrow")
-# large-dim Newton-solve implementation (Settings.big_solve): "direct" or
-# "panel" (full-pivot blocked; accuracy-equivalent, A/B via env)
-BIG_SOLVE = os.environ.get("HPFX_BENCH_BIG_SOLVE", "panel")
-SKIP_NET1 = os.environ.get("HPFX_BENCH_SKIP_NET1", "0") == "1"
-# >1 switches the sweeps to warm-start continuation with that many stages
-CONTINUATION_STAGES = int(os.environ.get("HPFX_BENCH_CONTINUATION", "0"))
-# >1 switches the sweeps to the DEVICE-SIDE continuation program
-# (hpfx.lanes.hpf_sweep_continuation_lanes, jitted whole-schedule scan)
-# with that many stages; takes precedence over HPFX_BENCH_CONTINUATION
-CONTDEV_STAGES = int(os.environ.get("HPFX_BENCH_CONTDEV", "0"))
-# Which stages ride the single-program DEVICE-SIDE adaptive sweep
-# (hpfx.lanes.hpf_sweep_adaptive_lanes: phase-capped trip + gathered
-# warm rescue + cold knife-edge restart, no host round-trip between
-# phases).  "net2" (default) = the headline net2 stage only — measured
-# +25% over the host-driven schedule interleaved at B=16384 with
-# identical convergence (BENCH_NOTES round 4); net1-class configs stay
-# host-driven because the static rescue_width=max(128, B//16) gather
-# overflows there (conv 0.87 vs 1.000 at B=2048).  "1" = everywhere
-# (A/B), "0" = host-driven everywhere.
-ADAPTDEV_MODE = os.environ.get("HPFX_BENCH_ADAPTDEV", "net2")
-# phase-1 initial state of the HOST-driven sweep stages: "linear" =
-# exact-linear Norton seed (hpfx.warmstart), "cold" = the reference's
-# flat start.  Stays cold by default: on the host schedule the seed is
-# a separate program (own dispatch + duplicate fundamental solve) and
-# net1-class f32 trip counts are floor-hover-dominated (19.2 -> 15.2,
-# BENCH_NOTES round 4) — and a seed program at net1/h99/n128 dims would
-# be a NEW first-dispatch window in the driver path (CLAUDE.md #27/#30).
-WARM = os.environ.get("HPFX_BENCH_WARMSTART", "cold")
-# phase-1 initial state of the DEVICE-SIDE adaptive stages (the net2
-# headline + stream): the seed is computed IN-PROGRAM (hpfx.lanes
-# _linear_seed_lanes — one (H-1)*n block solve per lane, no extra
-# dispatch).  Default "linear" per the round-5 interleaved headline A/B
-# (validation/bench_ws_headline.py: 34.9-39.0k vs 9.3-20.6k
-# conv-solves/s at B=16384, conv 1.000 both, trips 14.1 -> 2.65 max 3,
-# every rep; BENCH_NOTES round 5).
-WARM_DEV = os.environ.get("HPFX_BENCH_WARMSTART_DEV", "linear")
-# seconds granted to the TPU-availability preflight probe (see
-# _tpu_preflight); 0 disables the probe and the CPU fallback entirely
-PREFLIGHT_S = int(os.environ.get("HPFX_BENCH_PREFLIGHT", "300"))
-TARGET_V5E8 = 10_000.0  # solves/sec on 8 chips (BASELINE.md)
-
-
-#: set once the mandatory configs are measured; the watchdog then reports
-#: these instead of 0.0 if the alarm fires during an optional extra stage
-MAIN_RESULT = None
-
-
-def _watchdog(signum, frame):
-    # a wedged TPU runtime must not hang the driver: report and exit
-    print(json.dumps(MAIN_RESULT if MAIN_RESULT is not None else {
-        "metric": "batched coupled-NR HPF solves/sec (net2, H<=25) — "
-                  "TPU runtime unresponsive, benchmark timed out",
-        "value": 0.0,
-        "unit": "solves/sec",
-        "vs_baseline": 0.0,
-    }), flush=True)
-    os._exit(0)  # driver records the JSON line; nonzero rc could discard it
-
-
-signal.signal(signal.SIGALRM, _watchdog)
-signal.alarm(TIMEOUT_S)
-
 import jax  # noqa: E402
-
-
-def _tpu_preflight() -> bool:
-    """Bounded TPU-availability probe; returns True if we fell back to CPU.
-
-    A post-wedge backend init hangs ~25-30 min before erroring
-    UNAVAILABLE (CLAUDE.md #32) — longer than the whole watchdog budget,
-    so a dead chip used to turn the round's official bench record into
-    a flat 0.0 (BENCH_r03).  Healthy init takes seconds, so probe it in
-    a DETACHED subprocess with a bounded wait; on timeout or failure the
-    probe is abandoned, never killed (killing in-flight TPU processes is
-    the documented wedge cause), and the bench runs on CPU with an
-    honestly-labeled metric instead of reporting nothing at all.
-    """
-    if PREFLIGHT_S <= 0:
-        return False
-    # only probe when the default (TPU) backend would be used
-    forced = os.environ.get("JAX_PLATFORMS", "")
-    if "cpu" in forced or jax.config.jax_platforms == "cpu":
-        return False
-    import subprocess
-    code = ("import jax\n"
-            "jax.devices()\n"
-            "print('TPU_PREFLIGHT_OK', flush=True)\n")
-    try:
-        proc = subprocess.Popen(
-            [sys.executable, "-c", code], stdout=subprocess.PIPE,
-            stderr=subprocess.DEVNULL, start_new_session=True)
-        proc.wait(timeout=PREFLIGHT_S)
-        ok = proc.returncode == 0 and b"TPU_PREFLIGHT_OK" in proc.stdout.read()
-    except subprocess.TimeoutExpired:
-        ok = False                    # abandon the probe — do NOT kill it
-    except Exception:
-        ok = False
-    if not ok:
-        jax.config.update("jax_platforms", "cpu")
-    return not ok
-
-
-CPU_FALLBACK = _tpu_preflight()
-if CPU_FALLBACK:
-    # keep the CPU run comfortably inside the remaining watchdog budget
-    BATCH = min(BATCH, 1024)
-    BATCH_NET1 = min(BATCH_NET1, 64)
-    REPEATS = min(REPEATS, 2)
-    if (CONTINUATION_STAGES == 0 and CONTDEV_STAGES == 0
-            and ADAPTDEV_MODE != "1"):
-        ADAPTDEV_MODE = "0"   # CPU fallback: host continuation everywhere
-        # on CPU the sweep is compute-bound, so the warm-start
-        # continuation's 3-4x NR-trip saving is a real throughput win
-        # (interleaved A/B at this config: cont8 ~4.0k vs adaptive
-        # ~1.1k conv-solves/s at conv 1.000; on TPU the same schedule
-        # LOSES to dispatch cost, CLAUDE.md #28 — hence CPU-only)
-        CONTINUATION_STAGES = 8
-
 import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
 
 import hpfx  # noqa: E402
+from hpfx.lanes import hpf_sweep_adaptive_lanes  # noqa: E402
+from hpfx.solve import (Scenarios, hpf_sweep_adaptive,  # noqa: E402
+                        hpf_sweep_device, hpf_sweep_stream)
 from hpfx.utils.cache import enable_persistent_cache  # noqa: E402
 
-_REPO = os.path.dirname(os.path.abspath(__file__))
-_MARKER_DIR = os.environ.get("HPFX_CACHE_DIR") or os.path.join(
-    _REPO, ".jax_cache")
-_PRIMER = {"proc": None}
-
-
-def _marker(name: str) -> str:
-    return os.path.join(_MARKER_DIR, name)
-
-
-def _await_primed(names, wait_s: float):
-    """Self-priming stage gate (round-4 VERDICT item 2).
-
-    The gated stages (n128/h99/sens/assess/contsweep) must only run
-    where their programs' first-dispatch windows are already paid — a
-    watchdog firing mid-first-dispatch is the documented runtime-wedge
-    cause (CLAUDE.md #30).  Round 4 gated them on side-marker files,
-    which desynchronized from the executable cache and silently dropped
-    three stages from the official record.  Now, when markers are
-    missing, bench SPAWNS the priming pass itself — a detached
-    `validation/precompile.py --execute-missing` subprocess (never
-    killed; on timeout it is abandoned and keeps priming for the next
-    run) — and waits a bounded time for it to finish.  Stages run only
-    when their marker exists AND no primer is mid-flight (a concurrent
-    primer would corrupt the stage timings on the shared chip).
-
-    Returns the set of marker names whose stages may run.
-    """
-    import subprocess
-    missing = [n for n in names if not os.path.exists(_marker(n))]
-    if not missing:
-        return set(names)
-    if _PRIMER["proc"] is None:
-        os.makedirs(_MARKER_DIR, exist_ok=True)
-        log = open(os.path.join(_MARKER_DIR, "primer.log"), "ab")
-        _PRIMER["proc"] = subprocess.Popen(
-            [sys.executable,
-             os.path.join(_REPO, "validation", "precompile.py"),
-             "--execute-missing"],
-            stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
-    proc = _PRIMER["proc"]
-    deadline = time.monotonic() + max(0.0, wait_s)
-    while time.monotonic() < deadline and proc.poll() is None:
-        time.sleep(5)
-    if proc.poll() is None:
-        return set()          # primer mid-flight: no gated stage runs
-    return {n for n in names if os.path.exists(_marker(n))}
-
-# persistent executable cache: warm runs skip the 20-200 s first
-# compiles, keeping the whole run well inside the watchdog budget
-# (validation/precompile.py primes it compile-only; HPFX_CACHE_DIR=""
-# disables)
-enable_persistent_cache()
-from hpfx.solve import Scenarios, hpf_sweep_adaptive  # noqa: E402
-
+BATCH = 16384
+BATCH_NET1 = 2048
+REPEATS = 5
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                     "hpfx", "data")
 
 
-def bench_config(net_name: str, h_max: int, solver: str, batch: int,
-                 repeats: int, phase2_solver: str = "dense",
-                 phase_iters: int = 24, adaptdev: bool = False):
-    """Time one fixture-net sweep config."""
+def card_info() -> str:
+    """``name, power.limit`` of the first card, as nvidia-smi prints it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def _settings(h_max: int) -> hpfx.Settings:
     # stable_mismatch: cancellation-free residual evaluation — required for
-    # reference-threshold f32 convergence on stiff grids (see BENCH_NOTES)
-    s = hpfx.settings_for_hmax(h_max, coupled=True).with_(
-        solver=solver, stable_mismatch=True, big_solve=BIG_SOLVE)
-    net = hpfx.load_network(os.path.join(DATA, f"{net_name}_buses.csv"),
-                            os.path.join(DATA, f"{net_name}_lines.csv"), s)
-    dev = hpfx.load_device_set(net, s)
-    return bench_net(net, dev, s, batch, repeats, phase2_solver, phase_iters,
-                     adaptdev=adaptdev)
+    # reference-threshold f32 convergence on stiff grids
+    return hpfx.settings_for_hmax(h_max, coupled=True).with_(
+        solver="arrow", stable_mismatch=True, dtype="float32")
 
 
-def bench_synthetic(n: int, n_nl: int, h_max: int, batch: int,
-                    repeats: int = 2, spread=(0.9, 1.1, 0.7, 1.2)):
-    """Time a synthetic-feeder sweep (the beyond-n=20 scaling data point;
-    hpfx.generators.synthetic_feeder, self-consistency-gated in
-    tests/test_scaling.py).  The scenario spread is narrowed to the
-    feeder's physically feasible range (the heavy synthetic feeders have
-    no power-flow solution past ~1.1-1.25x injections — divergence there
-    is a property of the grid, not the solver)."""
-    s = hpfx.settings_for_hmax(h_max, coupled=True).with_(
-        solver="arrow", stable_mismatch=True, big_solve=BIG_SOLVE)
-    from hpfx.generators import synthetic_feeder
-    net = synthetic_feeder(n, n_nl, s, components=("SMPS",), seed=1)
-    dev = hpfx.load_device_set(net, s)
-    return bench_net(net, dev, s, batch, repeats,
-                     phase2_solver="arrow", phase_iters=30,
-                     spread=spread)
+def _fixture(name: str, s):
+    net = hpfx.load_network(os.path.join(DATA, f"{name}_buses.csv"),
+                            os.path.join(DATA, f"{name}_lines.csv"), s)
+    return net, hpfx.load_device_set(net, s)
 
 
-def bench_grads(batch: int, repeats: int = 3):
-    """grads/sec for the batched IFT gradient program (sweep_sensitivity,
-    net2 H<=25) — the differentiability capability the reference lacks,
-    timed with the same discipline as the solver stages (fresh scenario
-    sets per rep, host-materialized sync)."""
-    import numpy as np
-
-    from hpfx.sensitivity import sweep_sensitivity
-    from hpfx.solve import hpf_sweep
-
-    s = hpfx.settings_for_hmax(25, coupled=True).with_(
-        solver="arrow", stable_mismatch=True, big_solve=BIG_SOLVE)
-    net = hpfx.load_network(os.path.join(DATA, "net2_buses.csv"),
-                            os.path.join(DATA, "net2_lines.csv"), s)
-    dev = hpfx.load_device_set(net, s)
-
-    def scen(k):
-        return Scenarios(
-            p_scale=jnp.asarray(np.linspace(0.8, 1.2, batch) + 1e-4 * k,
-                                jnp.float32),
-            q_scale=jnp.asarray(np.linspace(0.8, 1.2, batch), jnp.float32),
-            injection_scale=jnp.asarray(np.linspace(0.6, 1.4, batch),
-                                        jnp.float32))
-
-    from functools import partial as _partial
-    sweep = jax.jit(_partial(hpf_sweep, net, dev, settings=s))
-    grads = jax.jit(lambda sr, sc: sweep_sensitivity(net, dev, s, sr, sc))
-
-    sc0 = scen(-1)
-    sr0 = sweep(scenarios=sc0)
-    np.asarray(sr0.V_m)
-    g0 = grads(sr0, sc0)                      # warmup
-    finite = float(np.mean([np.isfinite(np.asarray(leaf)).mean()
-                            for leaf in jax.tree_util.tree_leaves(g0.grad)]))
-    times = []
-    for k in range(repeats):
-        sc = scen(k)
-        sr = sweep(scenarios=sc)
-        np.asarray(sr.V_m)
-        t0 = time.perf_counter()
-        g = grads(sr, sc)
-        jax.tree.map(lambda x: np.asarray(x), g.grad)
-        times.append(time.perf_counter() - t0)
-    return dict(grads_per_sec=batch / min(times), finite_frac=finite,
-                batch=batch)
-
-
-def bench_net(net, dev, s, batch: int, repeats: int,
-              phase2_solver: str = "dense", phase_iters: int = 24,
-              spread=(0.8, 1.2, 0.6, 1.4), adaptdev: bool = False):
-    """Time one sweep config; returns raw/converged solves/sec + stats.
-    ``spread`` = (p_lo, p_hi, inj_lo, inj_hi) scenario ranges."""
-    import numpy as np
-
+def _scen(batch: int, k: int, spread=(0.8, 1.2, 0.6, 1.4)) -> Scenarios:
+    """Hosting-capacity style spread; every repetition ``k`` gets a
+    distinct scenario set."""
     p_lo, p_hi, i_lo, i_hi = spread
+    lin = lambda a, b: np.linspace(a, b, batch)  # noqa: E731
+    return Scenarios(
+        p_scale=jnp.asarray(lin(p_lo, p_hi) + 1e-4 * k, jnp.float32),
+        q_scale=jnp.asarray(lin(p_lo, p_hi), jnp.float32),
+        injection_scale=jnp.asarray(lin(i_lo, i_hi), jnp.float32))
 
-    # scenario spread representative of a hosting-capacity sweep.  Every
-    # repetition gets a *distinct* scenario set, and timing is closed by
-    # full host materialization of the result: on this backend
-    # block_until_ready does not actually synchronize (only host
-    # transfers do) — naive timing measures dispatch, not execution.
-    def scen(k):
-        return Scenarios(
-            p_scale=jnp.asarray(np.linspace(p_lo, p_hi, batch) + 1e-4 * k,
-                                jnp.float32),
-            q_scale=jnp.asarray(np.linspace(p_lo, p_hi, batch), jnp.float32),
-            injection_scale=jnp.asarray(np.linspace(i_lo, i_hi, batch),
-                                        jnp.float32))
 
-    # two-phase sweep: stragglers re-solve warm-started instead of
-    # holding the whole lockstep batch at max_iter (identical solutions).
-    # Measured phase-2 choice: net2's dim-102 dense re-solve is cheap and
-    # sturdiest; at net1 scale the dense phase 2 costs more than it saves
-    # and the warm-started arrow re-solve converges everything (the warm
-    # start breaks the cold-start oscillation seen on hard scenarios).
-    # Large-dim Newton solves (net1's dim-182 capacitance system) ride
-    # the full-pivot blocked panel GJ (Settings.big_solve="panel"):
-    # measured ~20% faster than the direct kernel at identical
-    # convergence.  (The panel-SCHUR variant — pivoting restricted to
-    # panel rows — was A/B'd in every arrangement and always lost
-    # converged-throughput; see BENCH_NOTES.)
-    s2 = s.with_(solver=phase2_solver)
-    if CONTDEV_STAGES > 1:
-        # device-side continuation (HPFX_BENCH_CONTDEV=<stages>): the
-        # whole warm-start schedule as one jitted scan program — measured
-        # conv 1.000 at plain-sweep throughput on net2 (BENCH_NOTES
-        # round 3)
-        from functools import partial as _partial
-
-        from hpfx.lanes import hpf_sweep_continuation_lanes
-        _jc = jax.jit(_partial(hpf_sweep_continuation_lanes, settings=s,
-                               n_stages=CONTDEV_STAGES))
-        run = lambda sc: _jc(net, dev, scenarios=sc)
-    elif CONTINUATION_STAGES > 1:
-        # warm-start continuation A/B (HPFX_BENCH_CONTINUATION=<stages>):
-        # stage chunks seeded from nearest solved neighbors
-        from hpfx.solve import hpf_sweep_continuation
-        run = lambda sc: hpf_sweep_continuation(
-            net, dev, s, sc, n_stages=CONTINUATION_STAGES,
-            phase_iters=phase_iters, phase2_settings=s2)
-    elif ADAPTDEV_MODE == "1" or (adaptdev and ADAPTDEV_MODE != "0"):
-        # single-program device-side adaptive sweep (HPFX_BENCH_ADAPTDEV):
-        # no host round-trip between phase 1, the gathered warm rescue,
-        # and the cold knife-edge restart; the host-side _rescue_sweep
-        # kicks in only when lanes remain unconverged, restoring the
-        # deterministic-conv contract at fast-path cost of one mask read
-        from functools import partial as _partial
-
-        from hpfx.lanes import hpf_sweep_adaptive_lanes
-        from hpfx.solve import hpf_sweep_device
-        _ja = jax.jit(_partial(hpf_sweep_adaptive_lanes, settings=s,
-                               phase_iters=phase_iters, warm=WARM_DEV))
-        run = lambda sc: hpf_sweep_device(net, dev, s, sc,
-                                          phase_iters=phase_iters,
-                                          jitted=_ja)
-    else:
-        run = lambda sc: hpf_sweep_adaptive(net, dev, s, sc,
-                                            phase_iters=phase_iters,
-                                            phase2_settings=s2,
-                                            warm=WARM)
-
-    res = run(scen(-1))              # warmup/compile
-    np.asarray(res.V_m)              # real device sync
-
-    times = []
-    conv = 0.0
+def _timed(run, repeats: int):
+    """Untimed warm-up (compilation) then ``repeats`` timed calls of
+    ``run(k)``, each ending in block_until_ready.  Returns (best seconds,
+    last result)."""
+    jax.block_until_ready(run(-1))
+    times, out = [], None
     for k in range(repeats):
-        sc = scen(k)
         t0 = time.perf_counter()
-        res = run(sc)
-        np.asarray(res.V_m)          # host materialization = sync
+        out = jax.block_until_ready(run(k))
         times.append(time.perf_counter() - t0)
-        conv = float(np.mean(np.asarray(res.converged)))
-    dt = min(times)
-    return dict(raw=batch / dt, conv=conv, converged=conv * batch / dt,
-                solver=s.solver, batch=batch)
+    return min(times), out
+
+
+def bench_net(net, dev, s, batch: int, repeats: int, phase_iters: int = 24,
+              device: bool = False, spread=(0.8, 1.2, 0.6, 1.4)) -> dict:
+    """One sweep stage: the single-program device schedule with the
+    in-program warm seed (``device=True``) or the host-driven adaptive
+    schedule."""
+    if device:
+        jitted = jax.jit(partial(hpf_sweep_adaptive_lanes, settings=s,
+                                 phase_iters=phase_iters, warm="linear"))
+        sweep = lambda sc: hpf_sweep_device(  # noqa: E731
+            net, dev, s, sc, phase_iters=phase_iters, jitted=jitted)
+    else:
+        sweep = lambda sc: hpf_sweep_adaptive(  # noqa: E731
+            net, dev, s, sc, phase_iters=phase_iters)
+    dt, res = _timed(lambda k: sweep(_scen(batch, k, spread)), repeats)
+    conv = float(np.mean(np.asarray(res.converged)))
+    return dict(solves_per_sec=conv * batch / dt, raw_solves_per_sec=batch / dt,
+                convergence=conv, batch=batch)
 
 
 def bench_stream(net, dev, s, batch: int, n_batches: int = 4,
-                 passes: int = 3, phase_iters: int = 24):
+                 passes: int = 3, phase_iters: int = 24) -> dict:
     """Steady-state pipelined throughput: hpf_sweep_stream over
     ``n_batches`` distinct scenario batches with depth-2 double
-    buffering, so host scenario-build/upload/dispatch/download rides
-    under device compute.  Measured +15-28% over back-to-back
-    single-sweep calls (validation/bench_stream.py, round 4) — the
-    production-serving view of the same programs the net2 stage times.
-    Reuses the net2 stage's settings/shapes exactly (same jit cache
-    entries; no new first-dispatch window in the driver path)."""
-    import numpy as np
-
-    from functools import partial as _partial
-
-    from hpfx.lanes import hpf_sweep_adaptive_lanes
-    from hpfx.solve import hpf_sweep_stream
-
-    jitted = jax.jit(_partial(hpf_sweep_adaptive_lanes, settings=s,
-                              phase_iters=phase_iters, warm=WARM_DEV))
-
-    def scen(k):
-        return Scenarios(
-            p_scale=jnp.asarray(np.linspace(0.8, 1.2, batch) + 1e-4 * k,
-                                jnp.float32),
-            q_scale=jnp.asarray(np.linspace(0.8, 1.2, batch), jnp.float32),
-            injection_scale=jnp.asarray(np.linspace(0.6, 1.4, batch),
-                                        jnp.float32))
+    buffering (same programs as the net2 stage)."""
+    jitted = jax.jit(partial(hpf_sweep_adaptive_lanes, settings=s,
+                             phase_iters=phase_iters, warm="linear"))
 
     def one_pass(k0):
-        conv = 1.0
-        gen = (scen(k0 + i) for i in range(n_batches))
-        for r in hpf_sweep_stream(net, dev, s, gen, depth=2,
-                                  phase_iters=phase_iters, jitted=jitted):
-            conv = min(conv, float(np.mean(np.asarray(r.converged))))
-        return conv
+        gen = (_scen(batch, k0 + i) for i in range(n_batches))
+        return [r for r in hpf_sweep_stream(net, dev, s, gen, depth=2,
+                                            phase_iters=phase_iters,
+                                            jitted=jitted)]
 
-    one_pass(-10 * n_batches)        # warm (programs already cached)
-    times, conv = [], 1.0
-    for p in range(passes):
-        t0 = time.perf_counter()
-        conv = min(conv, one_pass(100 * (p + 1)))
-        times.append(time.perf_counter() - t0)
-    dt = min(times)
-    rate = n_batches * batch / dt
-    return dict(raw=rate, conv=conv, converged=conv * rate, batch=batch,
-                n_batches=n_batches)
+    dt, outs = _timed(lambda k: one_pass(100 * (k + 1)), passes)
+    conv = min(float(np.mean(np.asarray(r.converged))) for r in outs)
+    return dict(solves_per_sec=conv * n_batches * batch / dt,
+                convergence=conv, batch=batch, n_batches=n_batches)
 
 
-def bench_studies_stages(batch: int = 4096, T: int = 1008,
-                         repeats: int = 2):
-    """Percentile assessment + quasi-static timeseries throughput
-    (hpfx.studies) at the shapes validation/bench_studies.py measured in
-    round 4 (8.5k assessed-solves/s, 7.75k steps/s — BENCH_NOTES
-    "studies + contingency"); same timing discipline as the solver
-    stages."""
-    import numpy as np
+def bench_grads(batch: int = 1024, repeats: int = 3) -> dict:
+    """grads/sec of the batched IFT gradient program (sweep_sensitivity,
+    net2 H<=25)."""
+    from hpfx.sensitivity import sweep_sensitivity
+    from hpfx.solve import hpf_sweep
 
-    s = hpfx.settings_for_hmax(25, coupled=True).with_(
-        solver="arrow", stable_mismatch=True, big_solve=BIG_SOLVE)
-    net = hpfx.load_network(os.path.join(DATA, "net2_buses.csv"),
-                            os.path.join(DATA, "net2_lines.csv"), s)
-    dev = hpfx.load_device_set(net, s)
+    s = _settings(25)
+    net, dev = _fixture("net2", s)
+    sweep = jax.jit(partial(hpf_sweep, net, dev, settings=s))
+    grads = jax.jit(lambda sr, sc: sweep_sensitivity(net, dev, s, sr, sc))
+    # the sweeps that feed the gradients are solved up front, untimed
+    inputs = {k: (sweep(scenarios=_scen(batch, k)), _scen(batch, k))
+              for k in range(-1, repeats)}
+    dt, g = _timed(lambda k: grads(*inputs[k]).grad, repeats)
+    finite = float(np.mean([np.isfinite(np.asarray(leaf)).mean()
+                            for leaf in jax.tree_util.tree_leaves(g)]))
+    return dict(grads_per_sec=batch / dt, finite_frac=finite, batch=batch)
 
-    # both stages ride the single-program device-side schedule with the
-    # exact-linear warm seed (the round-5 headline path; one jit wrapper
-    # re-specializes per batch shape), falling back to the host adaptive
-    # schedule when the warm default is off
-    if WARM_DEV != "cold":
-        from functools import partial as _partial
 
-        from hpfx.lanes import hpf_sweep_adaptive_lanes
-        from hpfx.solve import hpf_sweep_device
-        _jl = jax.jit(_partial(hpf_sweep_adaptive_lanes, settings=s,
-                               phase_iters=24, warm=WARM_DEV))
-        sweep_fn = lambda n_, d_, s_, sc_: hpf_sweep_device(
-            n_, d_, s_, sc_, phase_iters=24, jitted=_jl)
-    else:
-        sweep_fn = hpf_sweep_adaptive
+def bench_studies(batch: int = 4096, T: int = 1008,
+                  repeats: int = 2) -> dict:
+    """Percentile assessment + quasi-static time series (hpfx.studies) on
+    the device schedule with the warm seed."""
+    s = _settings(25)
+    net, dev = _fixture("net2", s)
+    jitted = jax.jit(partial(hpf_sweep_adaptive_lanes, settings=s,
+                             phase_iters=24, warm="linear"))
+    sweep_fn = lambda n_, d_, s_, sc_: hpf_sweep_device(  # noqa: E731
+        n_, d_, s_, sc_, phase_iters=24, jitted=jitted)
 
     def assess(k):
-        scen = hpfx.monte_carlo_scenarios(k, batch, net, s, inj_spread=0.3)
-        t0 = time.perf_counter()
-        qa = hpfx.assess_quantiles(net, dev, s, scen, sweep=sweep_fn)
-        np.asarray(qa.thd_q)
-        return time.perf_counter() - t0, qa.converged_frac
+        # negative seeds are rejected by the rng: warm up on a disjoint one
+        scen = hpfx.monte_carlo_scenarios(999 if k < 0 else k, batch, net, s,
+                                          inj_spread=0.3)
+        return hpfx.assess_quantiles(net, dev, s, scen, sweep=sweep_fn)
 
-    assess(999)                  # warm (negative seeds are rejected by
-    at, ac = [], 1.0             # the rng — warm with a disjoint draw)
-    for k in range(repeats):
-        dt, c = assess(k)
-        at.append(dt)
-        ac = min(ac, c)
+    at, qa = _timed(assess, repeats)
 
     def tseries(k):
         prof = hpfx.daily_profile(T, base=0.7 + 0.002 * k, peak=1.15)
-        t0 = time.perf_counter()
         ts = hpfx.run_timeseries(net, dev, s, prof, inj_profile=prof,
                                  chunk=T, sweep=sweep_fn)
-        pc = hpfx.percentile_compliance(ts, s)
-        np.asarray(pc.thd_p)
-        return time.perf_counter() - t0, pc.converged_frac
+        return hpfx.percentile_compliance(ts, s)
 
-    tseries(999)
-    tt, tc = [], 1.0
-    for k in range(repeats):
-        dt, c = tseries(k)
-        tt.append(dt)
-        tc = min(tc, c)
+    tt, pc = _timed(tseries, repeats)
     return {
-        "studies_assess_solves_per_sec": round(ac * batch / min(at), 1),
-        "studies_assess_convergence": round(ac, 4),
+        "studies_assess_solves_per_sec": qa.converged_frac * batch / at,
+        "studies_assess_convergence": qa.converged_frac,
         "studies_assess_batch": batch,
-        "timeseries_steps_per_sec": round(T / min(tt), 1),
-        "timeseries_convergence": round(tc, 4),
+        "timeseries_steps_per_sec": T / tt,
+        "timeseries_convergence": pc.converged_frac,
         "timeseries_steps": T,
     }
 
 
-def bench_contingency_sweep(S: int = 128, repeats: int = 2):
-    """(outage x scenario) N-1 line screen on net1 H<=5 uncoupled —
-    every (outage, draw) pair one lane of a single vmapped full-HPF
-    program (hpfx.contingency.screen_line_outages_sweep).
-
-    The recorded convergence is < 1 BY PHYSICS, not solver weakness:
-    outage 22 leaves a weakened topology on which the highest-injection
-    draws have no power-flow solution (f64 reproduces the f32
-    conv_frac exactly — 0.719 on that outage); surfacing those
-    infeasible pairs is the screen's purpose."""
-    import numpy as np
-
+def bench_contingency(S: int = 128, repeats: int = 2) -> dict:
+    """(outage x draw) N-1 line screen on net1 H<=5 uncoupled, every pair
+    one lane of a single vmapped full-HPF program, then an untimed f64
+    verification of the unconverged pairs (pairs that fail even in f64
+    are genuine power-flow infeasibility of the weakened topology)."""
     from hpfx import contingency as cg
 
     s = hpfx.settings_for_hmax(5, coupled=False).with_(
-        stable_mismatch=True)
-    net = hpfx.load_network(os.path.join(DATA, "net1_buses.csv"),
-                            os.path.join(DATA, "net1_lines.csv"), s)
-    dev = hpfx.load_device_set(net, s)
-
-    def run(k):
-        scen = Scenarios(
-            p_scale=jnp.asarray(np.linspace(0.9, 1.1, S) + 1e-4 * k,
-                                jnp.float32),
-            q_scale=jnp.asarray(np.linspace(0.9, 1.1, S), jnp.float32),
-            injection_scale=jnp.asarray(np.linspace(0.8, 1.2, S),
-                                        jnp.float32))
-        t0 = time.perf_counter()
-        rep = cg.screen_line_outages_sweep(net, dev, s, scen)
-        return time.perf_counter() - t0, rep
-
-    run(-1)                                     # warm
-    times, conv = [], 1.0
-    n_pairs = 0
-    for k in range(repeats):
-        dt, rep = run(k)
-        times.append(dt)
-        solved = ~rep.islanded
-        conv = min(conv, float(rep.converged[solved].mean()))
-        n_pairs = int(solved.sum()) * S
-    # untimed f64 verification of the last rep's unconverged pairs:
-    # pairs that fail even in f64 are genuine power-flow infeasibility
-    # of the weakened topology (the screen's signal, not a solver gap)
-    scen = Scenarios(
-        p_scale=jnp.asarray(np.linspace(0.9, 1.1, S) + 1e-4 * (repeats - 1),
-                            jnp.float32),
-        q_scale=jnp.asarray(np.linspace(0.9, 1.1, S), jnp.float32),
-        injection_scale=jnp.asarray(np.linspace(0.8, 1.2, S),
-                                    jnp.float32))
-    from hpfx import contingency as cg
-    vrep = cg.screen_line_outages_sweep(
-        net, dev, s, scen, verify_infeasible=True)
+        stable_mismatch=True, dtype="float32")
+    net, dev = _fixture("net1", s)
+    spread = (0.9, 1.1, 0.8, 1.2)
+    dt, rep = _timed(lambda k: cg.screen_line_outages_sweep(
+        net, dev, s, _scen(S, k, spread)), repeats)
+    solved = ~rep.islanded
+    conv = float(rep.converged[solved].mean())
+    n_pairs = int(solved.sum()) * S
+    vrep = cg.screen_line_outages_sweep(net, dev, s,
+                                        _scen(S, repeats - 1, spread),
+                                        verify_infeasible=True)
     rows = ~vrep.islanded
     n_feasible = int(rows.sum()) * S - int(vrep.infeasible.sum())
-    n_conv = int(vrep.converged[rows].sum())
     return {
-        "contingency_pairs_per_sec": round(conv * n_pairs / min(times), 1),
-        "contingency_convergence": round(conv, 4),
+        "contingency_pairs_per_sec": conv * n_pairs / dt,
+        "contingency_convergence": conv,
         "contingency_pairs": n_pairs,
         "contingency_infeasible_pairs": int(vrep.infeasible.sum()),
-        "contingency_conv_among_feasible": round(
-            n_conv / max(1, n_feasible), 4),
+        "contingency_conv_among_feasible":
+            int(vrep.converged[rows].sum()) / max(1, n_feasible),
     }
 
 
-def main():
-    n_dev = len(jax.devices())
-    per_chip_target = TARGET_V5E8 / 8.0 * n_dev
+def main() -> int:
+    if jax.default_backend() != "gpu":
+        print(f"bench.py needs a GPU; JAX's default backend is "
+              f"{jax.default_backend()!r}", file=sys.stderr)
+        return 1
+    enable_persistent_cache()
+    dev0 = jax.devices()[0]
+    out = {"platform": dev0.platform, "device_kind": dev0.device_kind,
+           "device_count": len(jax.devices()), "card": card_info()}
 
-    net2 = bench_config("net2", 25, SOLVER_NET2, BATCH, REPEATS,
-                        phase2_solver="dense", adaptdev=True)
-    extras = {
-        "net2_raw_solves_per_sec": round(net2["raw"], 1),
-        "net2_convergence": round(net2["conv"], 4),
-        "net2_solver": net2["solver"],
-    }
-    if CPU_FALLBACK:
-        extras["tpu_unavailable_cpu_fallback"] = True
-    if not SKIP_NET1:
-        net1 = bench_config("net1", 25, SOLVER_NET1, BATCH_NET1,
-                            max(2, REPEATS // 2), phase2_solver="arrow")
-        extras.update({
-            "net1_solves_per_sec": round(net1["converged"], 1),
-            "net1_raw_solves_per_sec": round(net1["raw"], 1),
-            "net1_convergence": round(net1["conv"], 4),
-            "net1_batch": net1["batch"],
-            "net1_solver": net1["solver"],
-        })
-    def result():
-        backend_note = (
-            "CPU FALLBACK — TPU backend unavailable at bench time, "
-            "vs_baseline still vs the per-chip TPU target; " if CPU_FALLBACK
-            else f"{n_dev} chip(s); ")
-        return {
-            "metric": "batched coupled-NR HPF converged-solves/sec (net2, "
-                      f"H<=25, B={BATCH}, conv={net2['conv']:.3f}, "
-                      f"solver={net2['solver']}, {backend_note}"
-                      "net1_* keys = reference-scale config, J dim 518)",
-            "value": round(net2["converged"], 1),
-            "unit": "solves/sec",
-            "vs_baseline": round(net2["converged"] / per_chip_target, 3),
-            **extras,
-        }
+    def stage(prefix, result):
+        out.update({f"{prefix}_{k}": v for k, v in result.items()})
+        print(f"# {prefix}: {result}", file=sys.stderr, flush=True)
 
-    # the mandatory configs are in; if the alarm fires during the
-    # optional h51 stage below, the watchdog reports them instead of 0.0
-    global MAIN_RESULT
-    MAIN_RESULT = result()
-
-    # steady-state pipelined throughput (hpf_sweep_stream): the
-    # serving-mode view of the net2 programs — same compiled executables
-    # as the stage above (no new shapes), host work double-buffered
-    # under device compute.  Cheap (~20 s) and unconditionally safe, but
-    # only meaningful on the real chip.
-    remaining = signal.alarm(0)
-    if not CPU_FALLBACK and remaining > 120:
-        signal.alarm(remaining)
-        s_net2 = hpfx.settings_for_hmax(25, coupled=True).with_(
-            solver=SOLVER_NET2, stable_mismatch=True, big_solve=BIG_SOLVE)
-        net_2 = hpfx.load_network(os.path.join(DATA, "net2_buses.csv"),
-                                  os.path.join(DATA, "net2_lines.csv"),
-                                  s_net2)
-        dev_2 = hpfx.load_device_set(net_2, s_net2)
-        stream = bench_stream(net_2, dev_2, s_net2, BATCH)
-        extras.update({
-            "net2_stream_solves_per_sec": round(stream["converged"], 1),
-            "net2_stream_convergence": round(stream["conv"], 4),
-            "net2_stream_batches": stream["n_batches"],
-        })
-        MAIN_RESULT = result()
-    else:
-        signal.alarm(max(remaining, 1))
-
-    # the reference's largest timed config (hcne.jl:495-505: net1, odd
-    # harmonics to 49/51 — Jacobian dim 1038, capacitance dim 364 on the
-    # blocked panel-GJ path).  ~170 s of compile; run only if the true
-    # remaining alarm budget comfortably allows (signal.alarm(0) returns
-    # the seconds left — the alarm was armed before the slow jax import,
-    # so wall-clock arithmetic would overestimate the budget)
-    remaining = signal.alarm(0)
-    if not SKIP_NET1 and not CPU_FALLBACK and remaining > 600:
-        signal.alarm(remaining)
-        # B=256: 253-264/s vs 184-195/s at B=128 (round-3 A/B)
-        h51 = bench_config("net1", 51, SOLVER_NET1, 256, 2,
-                           phase2_solver="arrow", phase_iters=30)
-        extras.update({
-            "net1_h51_solves_per_sec": round(h51["converged"], 1),
-            "net1_h51_convergence": round(h51["conv"], 4),
-            "net1_h51_batch": h51["batch"],
-        })
-        MAIN_RESULT = result()
-    elif not SKIP_NET1:
-        # mark the absence explicitly: a short-budget run must be
-        # distinguishable from a config without the h51 stage.  Re-arm
-        # the watchdog — the next stage's alarm(0) must read the true
-        # remaining budget, not 0
-        signal.alarm(max(remaining, 1))
-        extras["net1_h51_skipped"] = ("tpu_unavailable" if CPU_FALLBACK
-                                      else "insufficient_time")
-        MAIN_RESULT = result()
-
-    # beyond-n=20 scaling data points: synthetic 64-bus feeder (7 SMPS)
-    # and 128-bus feeder (30 SMPS) at H<=25.  The n=128 config (arrow
-    # blocks 256, capacitance dim 792, both on panel GJ) runs at conv
-    # 1.000 / ~20 conv-solves/s — but its FIRST-EVER dispatch on a cold
-    # executable cache takes ~14 min (the round-3 wedge-#4 reconstruction,
-    # BENCH_NOTES: historical "wedges at new shapes" were watchdogs
-    # killing that window, which wedges the runtime).  The stage is
-    # therefore self-gating: it only runs where the first-dispatch window
-    # has already been paid (the .jax_cache/n128_primed marker written by
-    # a completed validation/precompile.py --execute or manual priming
-    # run), so a cold machine can never hang itself here.
-    remaining = signal.alarm(0)
-    if not SKIP_NET1 and not CPU_FALLBACK and remaining > 420:
-        signal.alarm(remaining)
-        syn = bench_synthetic(64, 7, 25, batch=256)
-        extras.update({
-            "synthetic_n64_solves_per_sec": round(syn["converged"], 1),
-            "synthetic_n64_convergence": round(syn["conv"], 4),
-            "synthetic_n64_batch": syn["batch"],
-        })
-        MAIN_RESULT = result()
-    elif not SKIP_NET1:
-        signal.alarm(max(remaining, 1))
-        extras["synthetic_n64_skipped"] = (
-            "tpu_unavailable" if CPU_FALLBACK else "insufficient_time")
-        MAIN_RESULT = result()
-
-    # ---- gated stages: self-priming (see _await_primed) --------------
-    # reserve enough of the watchdog budget to actually RUN the gated
-    # stages after the priming wait (~540 s warm for all six)
-    remaining = signal.alarm(0)
-    signal.alarm(max(remaining, 1))
-    primed = set()
-    if not CPU_FALLBACK:
-        all_markers = ["sens_primed", "assess_primed", "contsweep_primed"]
-        if not SKIP_NET1:
-            all_markers += ["n128_primed", "h99_primed"]
-        primed = _await_primed(all_markers,
-                               wait_s=max(0, remaining - 700))
-
-    remaining = signal.alarm(0)
-    if not SKIP_NET1 and not CPU_FALLBACK and remaining > 420 \
-            and "n128_primed" in primed:
-        signal.alarm(remaining)
-        syn128 = bench_synthetic(128, 30, 25, batch=128,
-                                 spread=(0.95, 1.05, 0.8, 1.1))
-        extras.update({
-            "synthetic_n128_solves_per_sec": round(syn128["converged"], 1),
-            "synthetic_n128_convergence": round(syn128["conv"], 4),
-            "synthetic_n128_batch": syn128["batch"],
-        })
-        MAIN_RESULT = result()
-    elif not SKIP_NET1:
-        signal.alarm(max(remaining, 1))
-        extras["synthetic_n128_skipped"] = (
-            "tpu_unavailable" if CPU_FALLBACK
-            else "insufficient_time" if "n128_primed" in primed
-            else "priming_in_progress")
-        MAIN_RESULT = result()
-
-    # the full depth of the reference's own device data: smps_NE.csv
-    # carries coupled Norton parameters for odd harmonics to 99 (4950 Hz).
-    # net1 H<=99 is the deepest config anywhere in the suite (J dim 1998,
-    # capacitance dim 728 on the blocked panel-GJ path) — new Mosaic
-    # kernel shapes, so the stage is marker-gated exactly like
-    # synthetic_n128 (first-dispatch windows are paid once by
-    # `python validation/precompile.py --execute-h99`)
-    remaining = signal.alarm(0)
-    if not SKIP_NET1 and not CPU_FALLBACK and remaining > 420 \
-            and "h99_primed" in primed:
-        signal.alarm(remaining)
-        h99 = bench_config("net1", 99, SOLVER_NET1, 64, 2,
-                           phase2_solver="arrow", phase_iters=30)
-        extras.update({
-            "net1_h99_solves_per_sec": round(h99["converged"], 1),
-            "net1_h99_convergence": round(h99["conv"], 4),
-            "net1_h99_batch": h99["batch"],
-        })
-        MAIN_RESULT = result()
-    elif not SKIP_NET1:
-        signal.alarm(max(remaining, 1))
-        extras["net1_h99_skipped"] = (
-            "tpu_unavailable" if CPU_FALLBACK
-            else "insufficient_time" if "h99_primed" in primed
-            else "priming_in_progress")
-        MAIN_RESULT = result()
-
-    # differentiability throughput: the batched IFT gradient program
-    # (sweep_sensitivity) on net2 — a capability the reference has no
-    # counterpart for.  Marker-gated like n128/h99: the jacfwd programs'
-    # first-dispatch windows are paid by a completed
-    # `python validation/bench_sensitivity.py` run (round-4 TPU timings:
-    # 8.2-9.9k grads/s at B=1024).
-    remaining = signal.alarm(0)
-    if not CPU_FALLBACK and remaining > 240 \
-            and "sens_primed" in primed:
-        signal.alarm(remaining)
-        gr = bench_grads(1024, repeats=3)
-        extras.update({
-            "sweep_sensitivity_grads_per_sec": round(gr["grads_per_sec"],
-                                                     1),
-            "sweep_sensitivity_finite_frac": round(gr["finite_frac"], 4),
-            "sweep_sensitivity_batch": gr["batch"],
-        })
-        MAIN_RESULT = result()
-    else:
-        signal.alarm(max(remaining, 1))
-        extras["sweep_sensitivity_skipped"] = (
-            "tpu_unavailable" if CPU_FALLBACK
-            else "insufficient_time" if "sens_primed" in primed
-            else "priming_in_progress")
-        MAIN_RESULT = result()
-
-    # percentile study + quasi-static timeseries throughput (round-4
-    # capabilities, promoted into the driver record per round-4 VERDICT
-    # item 7; programs primed by precompile.prime_assess_execute)
-    remaining = signal.alarm(0)
-    if not CPU_FALLBACK and remaining > 240 and "assess_primed" in primed:
-        signal.alarm(remaining)
-        try:
-            extras.update(bench_studies_stages())
-        except Exception as e:  # noqa: BLE001 — record, don't abort
-            extras["studies_error"] = f"{type(e).__name__}: {e}"[:200]
-        MAIN_RESULT = result()
-    else:
-        signal.alarm(max(remaining, 1))
-        extras["studies_skipped"] = (
-            "tpu_unavailable" if CPU_FALLBACK
-            else "insufficient_time" if "assess_primed" in primed
-            else "priming_in_progress")
-        MAIN_RESULT = result()
-
-    # (outage x scenario) N-1 contingency screen — the TPU-wide batch
-    # (round-4 VERDICT item 6; K*S ~ 2.7k vmapped full-HPF solves)
-    remaining = signal.alarm(0)
-    if not CPU_FALLBACK and remaining > 180 \
-            and "contsweep_primed" in primed:
-        signal.alarm(remaining)
-        try:
-            extras.update(bench_contingency_sweep())
-        except Exception as e:  # noqa: BLE001 — record, don't abort
-            extras["contingency_error"] = f"{type(e).__name__}: {e}"[:200]
-        MAIN_RESULT = result()
-    else:
-        signal.alarm(max(remaining, 1))
-        extras["contingency_skipped"] = (
-            "tpu_unavailable" if CPU_FALLBACK
-            else "insufficient_time" if "contsweep_primed" in primed
-            else "priming_in_progress")
-        MAIN_RESULT = result()
-
-    signal.alarm(0)
-    print(json.dumps(MAIN_RESULT))
+    s25 = _settings(25)
+    net2, dev2 = _fixture("net2", s25)
+    stage("net2", bench_net(net2, dev2, s25, BATCH, REPEATS, device=True))
+    stage("net2_stream", bench_stream(net2, dev2, s25, BATCH))
+    net1, dev1 = _fixture("net1", s25)
+    stage("net1", bench_net(net1, dev1, s25, BATCH_NET1, 3))
+    s51 = _settings(51)
+    stage("net1_h51", bench_net(*_fixture("net1", s51), s51, 256, 2,
+                                phase_iters=30))
+    s99 = _settings(99)
+    stage("net1_h99", bench_net(*_fixture("net1", s99), s99, 64, 2,
+                                phase_iters=30))
+    from hpfx.generators import synthetic_feeder
+    for n, n_nl, batch, spread in ((64, 7, 256, (0.9, 1.1, 0.7, 1.2)),
+                                   (128, 30, 128, (0.95, 1.05, 0.8, 1.1))):
+        # spreads narrowed to each feeder's feasible range: the heavy
+        # synthetic feeders have no power-flow solution past ~1.1-1.25x
+        # injections
+        feeder = synthetic_feeder(n, n_nl, s25, components=("SMPS",), seed=1)
+        stage(f"synthetic_n{n}", bench_net(
+            feeder, hpfx.load_device_set(feeder, s25), s25, batch, 2,
+            phase_iters=30, spread=spread))
+    stage("sweep_sensitivity", bench_grads())
+    out.update(bench_studies())
+    out.update(bench_contingency())
+    out["metric"] = "batched coupled-NR HPF converged solves/sec " \
+                    f"(net2, H<=25, B={BATCH})"
+    out["value"] = out["net2_solves_per_sec"]
+    out["unit"] = "solves/sec"
+    print(json.dumps(out))
+    return 0
 
 
 if __name__ == "__main__":
-    try:
-        main()
-    except Exception as e:  # noqa: BLE001
-        # an unreachable TPU backend (init raises RuntimeError/
-        # JaxRuntimeError UNAVAILABLE — the wedge #5 outage mode) must
-        # still hand the driver a JSON line, like the watchdog does
-        print(json.dumps(MAIN_RESULT if MAIN_RESULT is not None else {
-            "metric": "batched coupled-NR HPF solves/sec (net2, H<=25) — "
-                      f"benchmark aborted: {type(e).__name__}: {e}",
-            "value": 0.0,
-            "unit": "solves/sec",
-            "vs_baseline": 0.0,
-        }), flush=True)
-        os._exit(0)
+    sys.exit(main())

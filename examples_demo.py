@@ -1,6 +1,7 @@
 """End-to-end hpfx demo: every layer of the pipeline in one script.
 
-Run: python examples_demo.py          (CPU or TPU; ~1 min on CPU)
+Run: python examples_demo.py          (JAX's default backend;
+     JAX_PLATFORMS=cpu python examples_demo.py for the CPU, ~1 min)
 
 Covers, in order:
   1. device characterization: simulate an SMPS rectifier, fit its coupled
@@ -28,14 +29,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import jax
 
-# Wedge protocol (CLAUDE.md #32): demo scripts must not run on the shared
-# TPU by default — a killed process with enqueued TPU work wedges the
-# runtime for hours.  Force CPU (+x64) unless HPFX_DEMO_TPU=1.
-from hpfx.utils.backend import backend_guard
-
-backend_guard()
-if jax.default_backend() == "cpu":
-    jax.config.update("jax_enable_x64", True)
+# the demo prints reference-parity numbers: f64 on every backend
+jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
 import numpy as np
@@ -414,7 +409,7 @@ def main():
           f"on coupled NEs)")
 
 
-    # -- 27. exact-linear Norton warm start (the round-5 headline) --------
+    # -- 27. exact-linear Norton warm start ---------------------------------
     from hpfx.solve import Scenarios as Sc27, hpf_sweep_adaptive as hsa27
     sc27 = Sc27(p_scale=jnp.linspace(0.9, 1.1, 8),
                 q_scale=jnp.linspace(0.9, 1.1, 8),
@@ -425,7 +420,7 @@ def main():
     print(f"[27] exact-linear Norton warm start (one (H-1)n block solve "
           f"per scenario): NR trips mean {float(np.mean(np.asarray(rc27.n_iter))):.1f} "
           f"-> {float(np.mean(np.asarray(rw27.n_iter))):.1f} at the same "
-          f"fixed points (TPU headline: 48-54k conv-solves/s, ~2x cold)")
+          f"fixed points")
 
     # -- 28. batched background-distortion study --------------------------
     B28, H28 = 8, s27.n_harmonics

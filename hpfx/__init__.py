@@ -1,11 +1,11 @@
-"""hpfx — TPU-native harmonic power flow in JAX.
+"""hpfx — harmonic power flow in JAX.
 
 A from-scratch re-design of the capabilities of
 ``pweigmann/harmonic-power-flow`` (harmonically-coupled Norton-equivalent
-power flow) as a JAX/XLA/Pallas library: dense per-harmonic split-complex
-tensors on the MXU, ``lax.while_loop`` Newton-Raphson, ``vmap`` scenario
-batching, Pallas lane-parallel linear solves, and ``jax.sharding``
-scenario-axis parallelism over TPU meshes.
+power flow) as a JAX/XLA library: dense per-harmonic split-complex
+tensors, ``lax.while_loop`` Newton-Raphson, ``vmap`` or lane-major
+scenario batching with batched linear solves, and ``jax.sharding``
+scenario-axis parallelism over device meshes.
 """
 from . import cx
 from .checkpoint import load_result, save_result, warm_start

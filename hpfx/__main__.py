@@ -25,9 +25,9 @@ Every command also accepts ``--matpower case.m --nonlinear 4:SMPS
 frequency-dependent line resistance, ``report`` takes ``--en50160``
 for the per-order European voltage-quality table.
 
-Backend: CPU by default (the demo-script backend guard — this
-environment's shared TPU must be opted into with HPFX_DEMO_TPU=1; see
-hpfx/utils/backend.py).
+Backend: JAX's default backend (the GPU where one is present);
+``JAX_PLATFORMS=cpu`` selects the CPU.  The CLI enables x64, so its
+numbers are the f64 reference-parity numbers on either backend.
 """
 from __future__ import annotations
 
@@ -759,8 +759,8 @@ def cmd_contingency(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m hpfx",
-        description="TPU-native harmonic power flow (CPU backend by "
-                    "default; set HPFX_DEMO_TPU=1 for the TPU)")
+        description="harmonic power flow in JAX (JAX's default backend; "
+                    "JAX_PLATFORMS=cpu selects the CPU)")
     sub = p.add_subparsers(dest="command", required=True)
 
     ps = sub.add_parser("solve", help="single coupled-NR HPF solve")
@@ -1035,7 +1035,7 @@ def build_parser() -> argparse.ArgumentParser:
                     default=(0.8, 1.2), metavar=("LO", "HI"))
     pn.add_argument("--verify-infeasible", action="store_true",
                     help="with --draws: re-solve unconverged pairs in "
-                         "f64 on CPU — recovered pairs merge back, the "
+                         "f64 — recovered pairs merge back, the "
                          "rest are confirmed power-flow infeasibility "
                          "of the weakened topology")
     pn.set_defaults(fn=cmd_contingency)
@@ -1049,8 +1049,8 @@ def main(argv=None) -> int:
     from .devices import DATA_DIR
     args.ne_dir = list(args.ne_dir) + [DATA_DIR]
 
-    from .utils.backend import backend_guard
-    backend_guard()
+    import jax
+    jax.config.update("jax_enable_x64", True)
     return args.fn(args)
 
 

@@ -15,8 +15,8 @@ This module solves J·dx = f via the Woodbury identity:
     z = D^{-1}f,  G = V^T D^{-1} U        (block-diagonal over harmonics)
 
 Costs O(H·(2n)^3 + r^3) instead of O((2Hn)^3): for net1 at H<=25 that is
-~20x fewer flops, and every operation is a *batched small dense* op that
-maps onto the MXU / the Pallas batched solver — the TPU answer to the
+~20x fewer flops, and every operation is a *batched small dense* op
+(batched contractions and batched LU) — the batched answer to the
 reference's scipy.sparse LU.  For uncoupled devices C = 0 and the solve is
 purely block-diagonal.
 
@@ -230,9 +230,7 @@ def arrow_solve(pieces: ArrowPieces, f, idx: ArrowIndex):
 
     # one factorization per block, shared by f and the U columns.  The
     # fundamental block (size d0 = 2n-1-c) is identity-padded to 2n so all
-    # H blocks go through a single batched solve (one kernel launch; the
-    # uniform (H, 2n, 2n) batch is also what the Pallas multi-RHS
-    # Gauss-Jordan kernel consumes on TPU).
+    # H blocks go through a single uniform (H, 2n, 2n) batched solve).
     pad = 2 * n - d0
     D0p = jnp.eye(2 * n, dtype=pieces.D0.dtype).at[:d0, :d0].set(pieces.D0)
     rhs0 = jnp.concatenate([f0[:, None], E0], axis=1)

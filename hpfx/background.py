@@ -155,9 +155,8 @@ def background_sweep(net: Network, devices, settings: Settings, I_bg: Cx,
     pass — self-warm-start, cold restart, and the f64 knife-edge
     fallback — threads the matching ``I_bg`` rows, so the study carries
     the same deterministic-convergence contract as the plain sweeps
-    (the round-4 vmapped study recorded conv 0.963 f32 at B=4096 with
-    no rescue; the same draws are conv 1.000 in f64 — BENCH_NOTES
-    "background-distortion study timing").
+    (without the rescue, f32 batches of this study leave a few
+    knife-edge scenarios unconverged that converge in f64).
 
     ``schedule``: "device" runs the single-program lane-major schedule
     (:func:`hpfx.solve.hpf_sweep_device` — the background term rides
@@ -167,18 +166,13 @@ def background_sweep(net: Network, devices, settings: Settings, I_bg: Cx,
     the lanes configuration is supported.
     """
     from .solve import (Scenarios, hpf_sweep_adaptive,  # noqa: PLC0415
-                        hpf_sweep_device)
+                        hpf_sweep_device, uses_lanes)
     B = I_bg.re.shape[0]
     if scenarios is None:
         scenarios = Scenarios.uniform(B, settings.real_dtype)
     use_device = schedule == "device"
     if schedule == "auto":
-        from .lanes import supports_lanes
-        import jax
-        use_device = (settings.layout != "vmap"
-                      and supports_lanes(devices, settings, net)
-                      and (settings.layout == "lanes"
-                           or jax.default_backend() == "tpu"))
+        use_device = uses_lanes(devices, settings, net)
     if use_device:
         return hpf_sweep_device(net, devices, settings, scenarios,
                                 phase_iters=phase_iters, rescue=rescue,

@@ -11,15 +11,15 @@ applied to a FIXED set of scenario draws (common random numbers), with the
 capacity defined as the largest level at which at least ``confidence`` of
 the Monte-Carlo scenarios remain compliant.
 
-Design notes (TPU-first):
+Design notes:
 
 - every bisection probe re-enters the SAME jitted sweep program — the
   level only changes ``Scenarios.injection_scale`` *values*, never shapes
   or statics, so the whole search compiles exactly once and each probe is
   a single batched device dispatch;
 - probes are cold solves: warm-starting one level from another can track
-  a solution branch that cold energization never reaches (see BENCH_NOTES
-  round 4, filter-design acceptance) and would bias capacity upward;
+  a solution branch that cold energization never reaches (CLAUDE.md #15,
+  filter-design acceptance) and would bias capacity upward;
 - a non-converged scenario counts as NON-compliant — capacity claims are
   made only on solved cases;
 - common random numbers (one draw set, scaled per level) make the

@@ -71,47 +71,18 @@ class Settings:
     # compute mismatch Y·V terms in the cancellation-free line-difference
     # form (hpfx.ybus.stable_matvec).  Algebraically identical; drops the
     # f32 residual floor from |Y|·eps (which exceeds thresh_h on stiff
-    # grids like net1, stalling Newton on TPU) to ~|flow|·eps.  Off by
+    # grids like net1, stalling f32 Newton) to ~|flow|·eps.  Off by
     # default: the dense form matches the reference's arithmetic, which the
     # bit-level trajectory/iteration-count parity gates rely on.
     stable_mismatch: bool = False
 
     # Batch layout of hpf_sweep: "vmap" carries the scenario batch axis
-    # FIRST (jax.vmap), which presents the tiny per-scenario trailing axes
-    # to the TPU's (8, 128) vreg tiling — every op in the trip then runs at
-    # a few percent utilization.  "lanes" carries the batch LAST
-    # (hpfx.lanes), the lane-parallel layout the Pallas solve kernel uses,
-    # for the whole program.  "auto" = lanes on TPU when the configuration
-    # is supported (arrow solver + stacked Norton devices), vmap otherwise.
+    # FIRST (jax.vmap); "lanes" carries it LAST through the whole Newton
+    # trip (hpfx.lanes).  Both compute the same iteration.  "auto" picks
+    # hpfx.ops.auto_layout(platform) when the lane-major path supports the
+    # configuration (arrow solver + stacked Norton devices), vmap
+    # otherwise.
     layout: str = "auto"
-
-    # (A former `fused_trip` knob selected a one-Pallas-program-per-
-    # -Newton-iteration megakernel here; it miscompiles on this backend's
-    # Mosaic and measured ~30x slower per elimination step, so the kernel
-    # is quarantined in validation/fused_trip.py with its interpret-mode
-    # oracle tests — see BENCH_NOTES "fused-trip negative result".)
-
-    # Large-dim Newton-solve implementation on the lanes path (systems
-    # above hpfx.ops.batched_solve.SCHUR_MIN_DIM, e.g. the net1 dim-182
-    # Woodbury capacitance solve).  "direct": the fully-pivoted
-    # Pallas Gauss-Jordan kernel — the accuracy reference.  "schur": the
-    # blocked panel-Schur solve — 3.1x faster per solve, but its pivoting
-    # is restricted to each panel's rows, so a column whose mass lies
-    # outside the panel draws a near-zero pivot and the Newton step goes
-    # wild; measured at net1: plain-sweep convergence 0.945 -> 0.80, NOT
-    # recovered by iterative refinement, phase-splitting, or "warmup"
-    # (schur for the first big_solve_warmup trips, direct after, via
-    # lax.cond — early bad steps already leave the convergence basin).
-    # Use "schur" only where throughput beats per-scenario convergence.
-    # "panel" (default): the full-pivot blocked panel solve (hpfx.ops
-    # panel_gj_solve_lanes) — tall-panel kernel keeping the direct
-    # kernel's pivot rule over ALL rows, trailing updates as MXU
-    # matmuls.  Measured at net1 (interleaved A/B, one chip): ~20%
-    # faster end-to-end plain sweeps at identical convergence; also the
-    # path for systems beyond the direct kernel's VMEM cap (where the
-    # XLA-LU fallback is ~10x slower and crash-prone).
-    big_solve: str = "panel"
-    big_solve_warmup: int = 12
 
     # Floor-aware convergence: the mismatch can only be *evaluated* to
     # ~eps·scale, scale = max_i sum_j |Y_ij|·|V_j| (+ Norton |Y_N|·|V|

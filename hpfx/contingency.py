@@ -7,7 +7,7 @@ network into a resonance and how far does distortion move?  Losing a
 line or a shunt shifts every parallel-resonance frequency; losing a
 converter drops injections (and its Norton admittance's damping).
 
-TPU-native shape: an outage batch IS a batch axis.  Every single-line
+Batched shape: an outage batch IS a batch axis.  Every single-line
 outage network has exactly ``L-1`` lines, so the per-outage line arrays
 stack into ``(K, L-1)`` tensors and one ``jax.vmap`` of the full
 :func:`hpfx.harmonic.hpf` solve (Ybus assembly inside the vmap — the
@@ -237,8 +237,8 @@ def device_outage_scenarios(net: Network, settings: Settings, *,
     admittance's damping contribution at once (``DeviceSet.scale``
     scales the whole equivalent).  Caveat: on a single-device network
     the outage leaves every harmonic sourceless, whose exact solution
-    ``V_h = 0`` is singular in polar coordinates (CLAUDE.md's
-    hosting-capacity level-0 physics) — NR honestly reports
+    ``V_h = 0`` is singular in polar coordinates (the hosting-capacity
+    level-0 physics) — NR honestly reports
     non-convergence there; this requires >= 2 devices to be meaningful.
     """
     n_nl = net.n_nonlinear
@@ -370,9 +370,8 @@ def _solve_line_outage_sweep(net: Network, devices, settings: Settings,
                              stacks, p_scale, q_scale, inj_scale):
     """(outage × scenario) cross as ONE compiled program: outer vmap
     over the stacked surviving-line arrays, inner vmap over the
-    load/injection draws — the batch the TPU actually wants (K·S wide)
-    instead of the K-wide screen that leaves the chip idle
-    (round-4 measurement: 150 outages/s TPU vs 148 CPU at K=23)."""
+    load/injection draws — a K·S-wide batch instead of the K-wide screen
+    that leaves an accelerator mostly idle."""
 
     def one_outage(*lines):
         net_k = dataclasses.replace(net, **dict(zip(_LINE_FIELDS, lines)))
@@ -405,7 +404,7 @@ class ContingencySweepReport(NamedTuple):
 
     ``infeasible`` (K, S): only populated by
     ``verify_infeasible=True`` — unconverged pairs re-solved cold in
-    float64 on the CPU backend; True where even f64 finds no solution
+    float64 on the default device; True where even f64 finds no solution
     (a genuine power-flow infeasibility of the weakened topology, the
     screen's strongest signal), False where the f64 pass recovered the
     pair (its row is merged back as converged).  All-False otherwise.
@@ -426,10 +425,10 @@ def _verify_infeasible_pairs(net: Network, devices, settings: Settings,
                              sel, p, q, inj, conv, islanded, worst,
                              n_iter):
     """Re-solve every unconverged non-islanded (outage, draw) pair cold
-    in f64 on the CPU backend.  Pairs that converge there are merged
+    in f64 on the default device.  Pairs that converge there are merged
     back (the f32 knife-edge class); pairs that fail even in f64 are a
     genuine power-flow infeasibility of the weakened topology.  One
-    compiled CPU program serves every outage (the surviving-line arrays
+    compiled f64 program serves every outage (the surviving-line arrays
     are data, not shapes).  Returns the updated (conv, worst, n_iter,
     infeasible)."""
     import jax
@@ -442,8 +441,7 @@ def _verify_infeasible_pairs(net: Network, devices, settings: Settings,
     if bad.size == 0:
         return conv, worst, n_iter, infeasible
     s64 = settings.with_(dtype="float64")
-    cpu = jax.devices("cpu")[0]
-    with jax.enable_x64(), jax.default_device(cpu):
+    with jax.enable_x64():
         net64 = _to64(net)
         dev64 = _to64(devices)
         p64 = np.asarray(p, np.float64)
@@ -479,13 +477,13 @@ def screen_line_outages_sweep(net: Network, devices, settings: Settings,
 
     The single-case screen answers "does outage k worsen distortion at
     nominal load"; planning needs "in what fraction of operating points"
-    — and the K·S-wide batch is also what makes the screen a TPU
-    workload (the reference has no topology variation at all: its Ybus
+    — and the K·S-wide batch is also what makes the screen an
+    accelerator workload (the reference has no topology variation at all: its Ybus
     is built once, hcne_generalized.py:132-171).  ``scenarios``: the
     (S,) load/injection draws (hpfx.solve.Scenarios; device_mix not
     supported here).  ``quantile``: ranking quantile over draws.
     ``verify_infeasible``: re-solve unconverged pairs cold in f64 on
-    the CPU backend — recovered pairs merge back as converged (the f32
+    the default device — recovered pairs merge back as converged (the f32
     knife-edge class), the rest are reported ``infeasible`` (genuine
     power-flow infeasibility of the weakened topology, f64-confirmed).
     """

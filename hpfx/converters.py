@@ -211,7 +211,7 @@ def converter_warm_start(net: Network, settings: Settings,
     import jax.numpy as jnp
 
     # sourceless orders solve to exactly V_h = 0 — a polar-singular NR
-    # start (the angle-Jacobian column vanishes; CLAUDE.md #39/#40);
+    # start (the angle-Jacobian column vanishes; CLAUDE.md #12/#17);
     # floor them a hair off zero like hpfx.warmstart does
     from .warmstart import _floor_seed_mag
     V_m = jnp.concatenate([jnp.ones((1, n), rd),

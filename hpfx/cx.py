@@ -1,13 +1,12 @@
 """Split-complex arithmetic: complex tensors as (re, im) real pairs.
 
-TPU compilers (and this image's AOT TPU backend in particular) do not
-implement complex element types — XLA ordinarily *decomposes* complex math
-into real operations, and on this backend even that is unavailable.  Carrying
-the real and imaginary parts as separate real arrays is therefore the
-TPU-native representation: every complex matmul becomes 4 real MXU matmuls,
-every elementwise op a couple of VPU ops, and all dtypes are f32/bf16-
-friendly.  It also makes Pallas kernels straightforward (kernels see plain
-real refs).
+hpfx carries the real and imaginary parts of every complex quantity as
+separate real arrays: every complex matmul becomes 4 real matmuls, every
+elementwise op a couple of real ops, every dtype is a real f32/f64 one,
+and kernels see plain real refs.  (The representation dates from a
+backend without complex element types; XLA on the GPU has
+complex64/complex128, and whether native complex is faster there is an
+open measurement — PERF.md.)
 
 ``Cx`` is a NamedTuple, hence automatically a pytree: it vmaps, jits, shards
 and scatters transparently, and indexing/reshaping apply to both components.
@@ -181,10 +180,11 @@ def eye(n, dtype) -> Cx:
     return Cx(jnp.eye(n, dtype=dtype), jnp.zeros((n, n), dtype))
 
 
-# -- contractions (each = 4 real contractions; MXU-friendly) ----------------
+# -- contractions (each = 4 real contractions) -------------------------------
 #
-# Precision note: JAX's DEFAULT matmul precision on TPU feeds the MXU with
-# bfloat16-truncated operands.  Newton-Raphson residuals must resolve 1e-6
+# Precision note: JAX's DEFAULT matmul precision lets an accelerator use
+# reduced-precision operands (TF32 on an NVIDIA GPU's tensor cores).
+# Newton-Raphson residuals must resolve 1e-6
 # (fundamental) / 1e-4 (harmonic) against admittance entries of O(100) pu, so
 # every contraction here requests HIGHEST (full f32 accumulate).  Without
 # this, batched solves silently stall at a ~1e-2 error floor.
@@ -212,8 +212,8 @@ def einsum(pattern: str, a: Cx, b: Cx) -> Cx:
 
 def solve(A: Cx, B: Cx) -> Cx:
     """Solve the complex linear system A·X = B via the equivalent real block
-    system [[Ar, -Ai], [Ai, Ar]]·[Xr; Xi] = [Br; Bi] — a single real LU on
-    the MXU (TPU has no complex LU)."""
+    system [[Ar, -Ai], [Ai, Ar]]·[Xr; Xi] = [Br; Bi] — a single real
+    LU."""
     M = A.shape[-1]
     top = jnp.concatenate([A.re, -A.im], axis=-1)
     bot = jnp.concatenate([A.im, A.re], axis=-1)

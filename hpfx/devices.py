@@ -13,7 +13,7 @@ Covers the reference's device layer end to end:
 A ``DeviceSet`` stacks the equivalents of every nonlinear bus into batched
 arrays — ``I_N: (n_nl, H)`` and ``Y_N: (n_nl, H, H)`` (coupled) or
 ``(n_nl, H)`` (uncoupled) — so current injections and Jacobian couplings are
-single batched einsums on the MXU rather than per-bus Python loops.
+single batched einsums rather than per-bus Python loops.
 """
 from __future__ import annotations
 

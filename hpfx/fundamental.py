@@ -1,19 +1,19 @@
 """Fundamental-frequency Newton-Raphson power flow.
 
-TPU-native re-design of the reference fundamental solver
+Batched JAX re-design of the reference fundamental solver
 (``hcne_generalized.py:187-275``: init_fund_state_vec, fund_mismatch,
 build_jacobian, update_fund_state_vec, update_fund_voltages, pf), which is in
 turn PyPSA-style (see the permalink cited at hcne_generalized.py:8-9).
 
 Differences from the reference's implementation (not its math):
 - complex quantities are split-complex ``Cx`` pairs (see hpfx.cx) — every
-  complex product lowers to real VPU/MXU ops, with no complex element types
-  anywhere (this image's TPU backend has none),
+  complex product lowers to real ops, with no complex element types
+  anywhere,
 - the NR iteration is a ``lax.while_loop`` with a (V, x, f, err, iter) carry,
   traced once and compiled by XLA; no Python-level looping,
 - the Jacobian is a dense (2n-1-c)^2 real matrix assembled from broadcasted
-  algebra (no scipy.sparse); at these sizes dense LU beats any sparse path
-  on TPU,
+  algebra (no scipy.sparse); at these sizes dense batched LU beats any
+  sparse path,
 - everything is shape-static: the slack/PV/PQ partition enters through the
   static constants n, c (hcne_generalized.py:113-128), so slicing is
   compile-time.

@@ -1,12 +1,12 @@
 """Harmonically-coupled Norton-equivalent (HCNE) power flow — the core solver.
 
-TPU-native re-design of the reference harmonic solver
+Batched JAX re-design of the reference harmonic solver
 (``hcne_generalized.py:313-560``: current_injections, current_balance,
 harmonic_mismatch, harmonic_state_vector, build_harmonic_jacobian,
 update_harmonic_*, hpf).  The math is identical; the implementation is not:
 
 - Voltages are a dense (H, n) split-complex tensor (harmonic-major; see
-  hpfx.cx for why complex is carried as re/im real pairs on TPU), never a
+  hpfx.cx for why complex is carried as re/im real pairs), never a
   pandas MultiIndex.  Flattening row-major reproduces the reference's
   (harmonic, bus) state ordering exactly, so states/Jacobians compare
   element-for-element against the oracle fixtures.
@@ -14,7 +14,7 @@ update_harmonic_*, hpf).  The math is identical; the implementation is not:
   batched einsum over the stacked ``DeviceSet`` arrays instead of the
   reference's O((K+1)^2 · n_nl) Python scatter loop
   (hcne_generalized.py:426-435) — the reference's dominant assembly cost,
-  and exactly the regular diagonal pattern the MXU/VPU eat for free.
+  and a regular diagonal pattern that batches for free.
 - The Jacobian is assembled in a (H, H, n, n) block layout and reshaped once
   to its dense (2·H·n-1-c)^2 real form; the NR step is a dense LU solve.
   The harmonic-block coupling is *only* through nonlinear-bus diagonal
@@ -184,7 +184,7 @@ def build_harmonic_jacobian(V_m, V_a, Y: Cx, devices,
     Vn = cx.expj(V_a)                  # V/V_m: signed normalization (:405)
 
     # Assembly is pure broadcast arithmetic against constant masks — no
-    # runtime scatters, which lower poorly on TPU under vmap.  Layout
+    # runtime scatters under vmap.  Layout
     # (H, n, H, n): entry [h, i, p, j] of the big block matrix.
     eye_H = jnp.eye(H, dtype=rd)[:, None, :, None]      # δ_hp
     eye_n = jnp.eye(n, dtype=rd)                        # δ_ij
@@ -313,7 +313,7 @@ def solve_harmonic(Y: Cx, fund: FundResult, net: Network, devices: DeviceSet,
     (hpfx.parallel.hpf_single_hsharded).  Applied as a
     ``with_sharding_constraint`` to the while-loop carry so GSPMD keeps
     every per-harmonic op (Ybus matvecs, block Jacobians, the arrow block
-    solves) partitioned over the mesh's harmonic axis and inserts the ICI
+    solves) partitioned over the mesh's harmonic axis and inserts the
     collectives only where harmonics actually couple (the Norton
     cross-harmonic einsum and the Woodbury capacitance reduction).
     Requires being called under ``jit``; ``None`` = no constraint.

@@ -10,9 +10,9 @@ build_ybus`), and ``resonance_peaks`` locates the parallel-resonance
 candidates (local maxima of the driving-point magnitude over harmonic
 order) that tell a planner which injection orders a bus amplifies.
 
-TPU notes: split-complex throughout (no complex dtypes on this backend);
-the per-harmonic inversion is one H-batched real block solve
-(:func:`hpfx.cx.solve`), a single batched LU on the MXU.  Everything is
+Implementation: split-complex throughout (hpfx.cx); the per-harmonic
+inversion is one H-batched real block solve (:func:`hpfx.cx.solve`), a
+single batched LU.  Everything is
 jittable with static shapes.
 """
 from typing import Optional, Sequence, Tuple

@@ -107,8 +107,8 @@ def expand_voltages(red: KronReduction, V_m_k, V_a_k, n_full: int):
 
     Eliminated-bus phasors come from V_e = R @ V_k per harmonic; accepts an
     optional leading batch axis (the sweep path).  All contractions request
-    HIGHEST precision — the TPU bf16 matmul default would corrupt the
-    recovered voltages (CLAUDE.md rule 3).
+    HIGHEST precision — a reduced-precision matmul default (TF32 on a
+    GPU) would corrupt the recovered voltages.
     """
     import jax
     import jax.numpy as jnp

@@ -24,8 +24,7 @@ two-port ABCD = [cosh θ, Z_c·sinh θ; sinh θ/Z_c, cosh θ] at the
 terminals, so the external network sees the distributed line exactly;
 only the (unmodeled) internal voltage profile is abstracted away.
 
-Everything is split-complex (:mod:`hpfx.cx` — this TPU backend has no
-complex dtypes) and elementwise over the (H, L) grid, so the correction
+Everything is split-complex (:mod:`hpfx.cx`) and elementwise over the (H, L) grid, so the correction
 is XLA-fusion-friendly and costs nothing measurable next to the solves.
 ``sinh(θ)/θ`` and ``tanh(θ/2)/(θ/2)`` are even in θ; near θ = 0 (lines
 with no charging — e.g. every net1/net2/net3 line has B = 0) they are

@@ -21,12 +21,12 @@ of the impedance scan.  A parallel resonance is a near-singularity of
 This is the method of Xu, Huang & Cui, "Harmonic resonance mode
 analysis", IEEE Trans. Power Delivery 20(2), 2005.
 
-TPU-native design: the full eigendecomposition is LAPACK-shaped (no TPU
-lowering for nonsymmetric ``eig`` exists in XLA), but RMA only needs the
+Batched design: the full eigendecomposition is LAPACK-shaped (XLA lowers
+nonsymmetric ``eig`` on the CPU only), but RMA only needs the
 *smallest* eigenpair — computed here by **batched inverse iteration**:
 ``v <- normalize(solve(Y, v))`` converges to the smallest-|lambda| mode
 at ratio ``|lambda_1/lambda_2|`` per step, and each step is one
-H-batched split-complex block solve (:func:`hpfx.cx.solve`) on the MXU.
+H-batched split-complex block solve (:func:`hpfx.cx.solve`).
 A fixed, static trip count keeps the whole scan one jittable program;
 the returned residual certifies convergence.  The host-side full
 spectrum (:func:`modal_spectrum`) is provided for offline study and is

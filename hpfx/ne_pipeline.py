@@ -1,7 +1,7 @@
 """Norton-equivalent production pipeline: simulation measurements -> NE
 tables.
 
-TPU-idiomatic equivalent of the reference's ``Circuit
+JAX equivalent of the reference's ``Circuit
 Simulation/NE_from_sim.py`` (the L1 layer of SURVEY §1): ingest a
 circuit-simulation measurement sweep (the ``<device>_<fmax>.mat`` structs
 written by sim_FFT.m:327-329), assemble the measurement matrices, fit both

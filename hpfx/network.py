@@ -1,6 +1,6 @@
 """Network data model: buses, lines, per-unit conversion.
 
-TPU-native redesign of the reference's pandas data model
+JAX redesign of the reference's pandas data model
 (``hcne_generalized.py:45-128`` — init_lines_from_csv / init_buses_from_csv /
 init_network).  Instead of DataFrames, a ``Network`` is a registered JAX
 dataclass-pytree whose numeric fields are arrays (jit/vmap-able leaves) and

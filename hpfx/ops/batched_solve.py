@@ -1,318 +1,29 @@
-"""Pallas TPU kernel: batched dense linear solve (Gauss-Jordan, partial
-pivoting, lane-parallel over the batch).
+"""Batched dense linear solves of the Newton step.
 
-Why this exists: the Newton-Raphson hot loop solves one dense real system
-J·dx = f per scenario per iteration (J is the harmonic Jacobian,
-dim 2·H·n-1-c ~ 100..650).  XLA's batched LU on TPU lowers to a scalar
-column loop through HBM and runs ~100x below hardware potential at these
-sizes (measured: 14.5 ms for 256 systems of dim 102 on v5e — the dominant
-cost of the whole solver).
+Every Newton-Raphson trip of a scenario sweep solves many small dense
+real systems: the per-harmonic blocks and the Woodbury capacitance system
+of the arrow step (hpfx.arrow, hpfx.lanes), the dense Jacobian of the
+reference-form step, and the exact-linear warm seed.  This module holds
+the two dispatchers — :func:`batched_solve` for batch-major operands
+(B, n, n) and :func:`batched_solve_lanes` for the lane-major (n, n, B)
+operands of hpfx.lanes — and the ``custom_vmap`` primitives that route a
+vmapped per-scenario solve through one batched call.
 
-TPU mapping: v5e has a single TensorCore, so grid programs serialize — a
-"one program per system" layout leaves the vector lanes idle.  Instead the
-*batch* is the lane dimension: each grid step loads a (N, N, B_blk) slab
-(systems transposed to batch-minor), and every elimination step is an
-elementwise/reduction op over all B_blk systems at once, entirely in VMEM.
-
-Pivoting is *virtual*: rather than swapping rows (awkward per-lane), each
-step k selects, per system, the not-yet-used row with the largest |A[r, k]|
-as the pivot row, eliminates column k from every other row, and normalizes
-the pivot row in place.  A `used` mask replaces the permutation.  After n
-steps A has converged to a per-system permutation matrix, so the solution
-is recovered with one contraction x[k] = sum_r A[r, k] * b[r] — no gather.
-
-This is mathematically identical to LU with partial pivoting in exact
-arithmetic and shows comparable f32 error in tests (~1e-6 relative at
-cond ~ 1e5, matching LAPACK's behaviour at that conditioning).
+f32 solves are equilibrated (row and column max-abs scaling) before the
+elimination: the HPF Jacobian mixes O(1) power rows with O(|Y|) current
+rows, and raw f32 elimination loses that spread in accuracy.  f64 solves
+keep XLA's raw LU, the arithmetic the reference-parity gates were tuned
+on.  Which route a lane-minor solve takes is decided by
+:func:`hpfx.ops.dispatch.solve_route`.
 """
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.custom_batching
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
 
-try:  # pallas TPU backend is absent on pure-CPU installs
-    from jax.experimental.pallas import tpu as pltpu
-except Exception:  # pragma: no cover
-    pltpu = None
-
-LANE = 128
-SUBLANE = 8
-BLOCK = 128               # lanes (systems) per grid step (one native row)
-# The kernel keeps ~5 full-size (N, N, BLOCK) arrays live on the VMEM stack
-# (pipelined input, loop carry, iota mask, temporaries); the scoped-vmem
-# compiler limit is raised accordingly (a compiler default, not hardware —
-# v5e has 128 MiB physical VMEM).  Budget sized so the arrow solver's
-# Woodbury capacitance systems at reference scale (net1 H<=25: dim 182)
-# stay on the lane-parallel kernel instead of the ~10x-slower XLA LU;
-# compile-probed and hardware-validated at dim 184 (see
-# tests/test_compile_probe.py and BENCH_NOTES.md round 2).
-VMEM_LIMIT = 112 * 2**20
-VMEM_BUDGET = 18 * 2**20  # bytes for one (N, N, BLOCK) slab
-# largest system dim whose slab fits the budget
-MAX_PALLAS_DIM = int((VMEM_BUDGET / (4 * BLOCK)) ** 0.5) // SUBLANE * SUBLANE
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def _gj_kernel(a_ref, b_ref, x_ref, *, n: int, N: int, B: int, R: int = 1):
-    """Eliminate B systems at once: a_ref (N, N, B), b_ref (N, R, B) ->
-    x_ref (N, R, B).  R right-hand sides ride along through the same
-    elimination (multi-RHS is what the arrow solver's per-block
-    factorizations need)."""
-    row_nb = jax.lax.broadcasted_iota(jnp.int32, (N, B), 0)
-    col_nnb = jax.lax.broadcasted_iota(jnp.int32, (N, N, B), 1)
-
-    def step(k, carry):
-        A, b, used = carry
-        # masked reduce instead of dynamic_slice (not lowerable on TPU)
-        colk = jnp.sum(jnp.where(col_nnb == k, A, 0.0), axis=1)       # (N,B)
-        # per-system pivot row: largest |A[r,k]| among unused valid rows
-        # (`used` is a 0/1 f32 mask — Mosaic miscompiles mixed-rank i1 ops)
-        score = jnp.abs(colk) - 1e30 * used
-        p = jnp.argmax(score, axis=0)                                 # (B,)
-        on_p = (row_nb == p[None, :]).astype(A.dtype)                 # (N,B)
-        rowp = jnp.sum(jnp.broadcast_to(on_p[:, None, :], A.shape) * A,
-                       axis=0)                                        # (N,B)
-        bp = jnp.sum(on_p[:, None, :] * b, axis=0)                    # (R,B)
-        pivot = jnp.sum(on_p * colk, axis=0)                          # (B,)
-        inv_piv = 1.0 / pivot
-        w = (1.0 - on_p) * colk * inv_piv[None, :] + \
-            on_p * (1.0 - inv_piv[None, :])                           # (N,B)
-        A = A - w[:, None, :] * rowp[None, :, :]
-        b = b - w[:, None, :] * bp[None, :, :]
-        return A, b, jnp.maximum(used, on_p)
-
-    used0 = (row_nb >= n).astype(jnp.float32)
-    A, b, _ = jax.lax.fori_loop(
-        0, n, step, (a_ref[:], b_ref[:], used0))
-    for r in range(R):
-        x_ref[:, r, :] = jnp.sum(A * b[:, r:r + 1, :], axis=0)
-
-
-#: dims >= this use the carried-column kernel (fused update+extraction
-#: wins on big slabs); below it the 3-pass form is faster (measured)
-_KERNEL_SWITCH_DIM = 64
-
-
-def _gj_kernel_unrolled(a_ref, b_ref, x_ref, *, n: int, N: int, B: int,
-                        R: int = 1):
-    """Statically-unrolled variant of :func:`_gj_kernel_carried`: the
-    elimination loop is unrolled at trace time, so the working column is
-    a FREE static slice ``A[:, k, :]`` instead of a masked reduce against
-    the traced loop index.
-
-    MEASURED NEGATIVE RESULT (keep for re-testing on newer runtimes):
-    at dim 182 / B=512 on v5e this runs 240 ms vs the carried fori-loop
-    kernel's 48 ms (5x slower) and costs 290 s of Mosaic compile —
-    straight-line unrolling defeats Mosaic's loop software-pipelining on
-    this backend, the opposite of the round-2 plan's expectation.
-    Numerically correct (3e-7 vs LAPACK).  Env-gated via
-    HPFX_GJ_UNROLLED=1; never selected by default.
-    """
-    row_nb = jax.lax.broadcasted_iota(jnp.int32, (N, B), 0)
-    A = a_ref[:]
-    b = b_ref[:]
-    used = (row_nb >= n).astype(jnp.float32)
-    for k in range(n):
-        colk = A[:, k, :]                                          # free
-        score = jnp.abs(colk) - 1e30 * used
-        p = jnp.argmax(score, axis=0)                              # (B,)
-        on_p = (row_nb == p[None, :]).astype(A.dtype)              # (N,B)
-        rowp = jnp.sum(on_p[:, None, :] * A, axis=0)               # (N,B)
-        bp = jnp.sum(on_p[:, None, :] * b, axis=0)                 # (R,B)
-        pivot = jnp.sum(on_p * colk, axis=0, keepdims=True)        # (1,B)
-        inv_piv = 1.0 / pivot
-        w = (1.0 - on_p) * colk * inv_piv + on_p * (1.0 - inv_piv)
-        A = A - w[:, None, :] * rowp[None, :, :]
-        b = b - w[:, None, :] * bp[None, :, :]
-        used = jnp.maximum(used, on_p)
-    for r in range(R):
-        x_ref[:, r, :] = jnp.sum(A * b[:, r:r + 1, :], axis=0)
-
-
-def _gj_kernel_carried(a_ref, b_ref, x_ref, *, n: int, N: int, B: int,
-                       R: int = 1):
-    """Large-dim variant of :func:`_gj_kernel`: the working column of the
-    next step is reduced out of the freshly *updated* slab in the same
-    loop body, so Mosaic can fuse it with the rank-1 update's traversal
-    instead of paying a separate pre-step extraction pass over the old
-    slab.  Measured 1.38x over the 3-pass form at dim 182 (B=512, v5e);
-    slower at small dims where per-op overhead dominates — dispatch picks
-    per dimension (see _KERNEL_SWITCH_DIM).
-    """
-    row_nb = jax.lax.broadcasted_iota(jnp.int32, (N, B), 0)
-    col_nnb = jax.lax.broadcasted_iota(jnp.int32, (N, N, B), 1)
-
-    def step(k, carry):
-        A, b, used, colk = carry
-        # per-system pivot row: largest |A[r,k]| among unused valid rows
-        # (`used` is a 0/1 f32 mask — Mosaic miscompiles mixed-rank i1 ops)
-        score = jnp.abs(colk) - 1e30 * used
-        p = jnp.argmax(score, axis=0)                                 # (B,)
-        on_p = (row_nb == p[None, :]).astype(A.dtype)                 # (N,B)
-        # the one full-slab reduce: pivot row of A (all columns)
-        rowp = jnp.sum(jnp.broadcast_to(on_p[:, None, :], A.shape) * A,
-                       axis=0)                                        # (N,B)
-        bp = jnp.sum(on_p[:, None, :] * b, axis=0)                    # (R,B)
-        pivot = jnp.sum(on_p * colk, axis=0)                          # (B,)
-        inv_piv = 1.0 / pivot
-        # single fused rank-1 update: w = factor on non-pivot rows and
-        # (1 - 1/pivot) on the pivot row, then A -= w ⊗ rowp performs both
-        # the elimination and the pivot-row normalization (keeps VMEM-stack
-        # temporaries to one full-size array)
-        w = (1.0 - on_p) * colk * inv_piv[None, :] + \
-            on_p * (1.0 - inv_piv[None, :])                           # (N,B)
-        A = A - w[:, None, :] * rowp[None, :, :]
-        b = b - w[:, None, :] * bp[None, :, :]
-        return A, b, jnp.maximum(used, on_p), colk
-
-    # padded rows (r >= n) are all-zero: mark them used up front
-    used0 = (row_nb >= n).astype(jnp.float32)
-
-    def step2(k, carry):
-        A, b, used, colnext = carry
-        A, b, used, _ = step(k, (A, b, used, colnext))
-        # column k+1 of the updated slab, one masked reduce (same cost
-        # class as the rowp reduce; replaces the round-1 colk extraction)
-        colnext = jnp.sum(jnp.where(col_nnb == k + 1, A, 0.0), axis=1)
-        return A, b, used, colnext
-
-    col0 = jnp.sum(jnp.where(col_nnb == 0, a_ref[:], 0.0), axis=1)
-    A, b, _, _ = jax.lax.fori_loop(
-        0, n, step2, (a_ref[:], b_ref[:], used0, col0))
-    # A is now a per-system permutation: x[k] = sum_r A[r,k] * b[r]; one
-    # full-slab temporary per RHS (R is small, statically unrolled; pure
-    # slicing only — integer+newaxis indexing lowers to an unsupported
-    # gather in Mosaic)
-    for r in range(R):
-        x_ref[:, r, :] = jnp.sum(A * b[:, r:r + 1, :], axis=0)
-
-
-import os
-
-#: read once at import (module constant): this flag is consulted at TRACE
-#: time inside jitted solve entries, so a mid-process toggle would silently
-#: keep serving the previously cached kernel (the jit-cache A/B trap of
-#: CLAUDE.md #18).  A/B runs must set the env var before importing hpfx
-#: (or call jax.clear_caches() after mutating GJ_UNROLLED directly).
-GJ_UNROLLED = os.environ.get("HPFX_GJ_UNROLLED", "0") == "1"
-
-
-def _gj_pallas_core(At, bt, *, n: int, N: int, R: int, Bb: int, G: int,
-                    interpret: bool):
-    """Shared pallas_call: At (G, N, N, Bb), bt (G, N, R, Bb) f32 slabs."""
-    if n >= _KERNEL_SWITCH_DIM:
-        kfn = _gj_kernel_unrolled if GJ_UNROLLED else _gj_kernel_carried
-    else:
-        kfn = _gj_kernel
-    kernel = functools.partial(kfn, n=n, N=N, B=Bb, R=R)
-    mem = {} if pltpu is None else dict(memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        kernel,
-        grid=(G,),
-        in_specs=[pl.BlockSpec((None, N, N, Bb), lambda i: (i, 0, 0, 0),
-                               **mem),
-                  pl.BlockSpec((None, N, R, Bb), lambda i: (i, 0, 0, 0),
-                               **mem)],
-        out_specs=pl.BlockSpec((None, N, R, Bb), lambda i: (i, 0, 0, 0),
-                               **mem),
-        out_shape=jax.ShapeDtypeStruct((G, N, R, Bb), jnp.float32),
-        interpret=interpret,
-        compiler_params=(None if pltpu is None else
-                         pltpu.CompilerParams(vmem_limit_bytes=VMEM_LIMIT)),
-        cost_estimate=pl.CostEstimate(
-            flops=4 * n * N * N * Bb * G, bytes_accessed=N * N * Bb * G * 4,
-            transcendentals=0),
-    )(At, bt)
-
-
-def _check_block(n: int, N: int, block):
-    if block is None:
-        # one native lane row.  (Wider blocks — 256/512 lanes — miscompile
-        # into a device hang on this backend's Mosaic; do not raise.)
-        block = BLOCK
-        if N * N * 4 * block > VMEM_BUDGET:
-            raise ValueError(
-                f"system dim {n} exceeds the VMEM budget of the lane-"
-                "parallel kernel; use batched_solve() for auto-fallback")
-    return block
-
-
-@functools.partial(jax.jit, static_argnames=("block", "interpret"))
-def gauss_solve_pallas(A, b, block=None, interpret: bool = False):
-    """Solve A[i] @ x[i] = b[i] for a batch of dense real systems.
-
-    A: (B, n, n); b: (B, n) or (B, n, R) for multi-RHS -> matching shape,
-    computed in f32.
-    """
-    Bt, n, _ = A.shape
-    multi = b.ndim == 3
-    R = b.shape[2] if multi else 1
-    b3 = b if multi else b[..., None]                      # (B, n, R)
-    N = _round_up(n, SUBLANE)
-    Bb = _check_block(n, N, block)
-    Bp = _round_up(Bt, Bb)
-
-    # batch lives in a leading grid axis of G slabs of Bb lanes each; Bb is
-    # the arrays' full last dimension, satisfying the Mosaic block rule for
-    # lane counts below 128
-    G = Bp // Bb
-    At = jnp.zeros((N, N, Bp), jnp.float32)
-    At = At.at[:n, :n, :Bt].set(jnp.moveaxis(A.astype(jnp.float32), 0, -1))
-    At = At.reshape(N, N, G, Bb).transpose(2, 0, 1, 3)     # (G, N, N, Bb)
-    bt = jnp.zeros((N, R, Bp), jnp.float32)
-    bt = bt.at[:n, :, :Bt].set(
-        jnp.moveaxis(b3.astype(jnp.float32), 0, -1))       # (n, R, B)
-    bt = bt.reshape(N, R, G, Bb).transpose(2, 0, 1, 3)     # (G, N, R, Bb)
-
-    out = _gj_pallas_core(At, bt, n=n, N=N, R=R, Bb=Bb, G=G,
-                          interpret=interpret)
-    out = out.transpose(1, 2, 0, 3).reshape(N, R, Bp)
-    out = jnp.moveaxis(out[:n, :, :Bt], -1, 0)             # (B, n, R)
-    return (out if multi else out[..., 0]).astype(A.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("block", "interpret"))
-def gauss_solve_pallas_lanes(A, b, block=None, interpret: bool = False):
-    """Batch-minor entry: A (n, n, B), b (n, R, B) -> x (n, R, B).
-
-    Same kernel as :func:`gauss_solve_pallas`, but the operands already
-    carry the batch on the last (lane) axis — the layout the kernel wants —
-    so no (B, n, n) -> (n, n, B) relayout is paid per call.  This is the
-    solve primitive of the lane-major sweep path (hpfx.lanes), where every
-    tensor in the Newton trip keeps the scenario batch lane-minor.
-    """
-    n, _, Bt = A.shape
-    R = b.shape[1]
-    N = _round_up(n, SUBLANE)
-    Bb = _check_block(n, N, block)
-    Bp = _round_up(Bt, Bb)
-    G = Bp // Bb
-    At = jnp.zeros((N, N, Bp), jnp.float32)
-    At = At.at[:n, :n, :Bt].set(A.astype(jnp.float32))
-    At = At.reshape(N, N, G, Bb).transpose(2, 0, 1, 3)     # (G, N, N, Bb)
-    bt = jnp.zeros((N, R, Bp), jnp.float32)
-    bt = bt.at[:n, :, :Bt].set(b.astype(jnp.float32))
-    bt = bt.reshape(N, R, G, Bb).transpose(2, 0, 1, 3)     # (G, N, R, Bb)
-
-    out = _gj_pallas_core(At, bt, n=n, N=N, R=R, Bb=Bb, G=G,
-                          interpret=interpret)
-    out = out.transpose(1, 2, 0, 3).reshape(N, R, Bp)
-    return out[:n, :, :Bt].astype(A.dtype)
-
-
-# Hardware measurement (v5e, round 1, B=1024, n=102, device-resident
-# operands): Pallas Gauss-Jordan 7.8 ms vs XLA batched LU 51.8 ms per
-# solve — 6.7x.  (An earlier host-side microbenchmark that re-uploaded
-# numpy operands per call misattributed transfer cost to the kernel.)
-# HPFX_PALLAS_SOLVE=0 forces the XLA LU path.
-USE_PALLAS_SOLVE = os.environ.get("HPFX_PALLAS_SOLVE", "1") == "1"
+from .dispatch import solve_route
+from .gj_triton import gj_solve_triton_lanes
 
 
 def equilibrated(solve):
@@ -345,382 +56,13 @@ def _lu_solve(A, b):
     return jnp.linalg.solve(A, b[..., None])[..., 0]
 
 
-def _lu_solve_tpu(A, b):
-    """XLA batched LU with the batch padded to a multiple of 128.
-
-    This TPU backend's batched-LU codegen faults (TPU worker crash) at
-    specific (batch, dim) shapes — observed at B in {87, 88} with n = 518
-    while 64/95/96/104/128/256 are fine, so there is no clean alignment
-    rule to rely on.  Padding with identity systems keeps every LU launch
-    in the shape class the benchmarks exercise continuously.  Data-
-    dependent batch sizes (the adaptive sweep's straggler re-solve) hit
-    arbitrary B, which is how this was found.
-    """
-    B, n = A.shape[0], A.shape[-1]
-    Bp = -(-B // 128) * 128
-    if Bp == B:
-        return _lu_solve(A, b)
-    eye = jnp.broadcast_to(jnp.eye(n, dtype=A.dtype), (Bp - B, n, n))
-    Ap = jnp.concatenate([A, eye], axis=0)
-    pad = jnp.zeros((Bp - B,) + b.shape[1:], b.dtype)
-    bp = jnp.concatenate([b, pad], axis=0)
-    return _lu_solve(Ap, bp)[:B]
-
-
-def _panel_gj_batch_major(A, b):
-    """Batch-major adapter for :func:`panel_gj_solve_lanes`: A (B, n, n),
-    b (B, n) or (B, n, R)."""
-    multi = b.ndim == 3
-    b3 = b if multi else b[..., None]
-    x = panel_gj_solve_lanes(jnp.moveaxis(A, 0, -1),
-                             jnp.moveaxis(b3, 0, -1))
-    x = jnp.moveaxis(x, -1, 0)
-    return x if multi else x[..., 0]
-
-
 def batched_solve(A, b):
-    """Batched dense solve with automatic backend dispatch.
-
-    TPU: the Pallas lane-parallel Gauss-Jordan kernel above; dims past
-    its VMEM budget use the full-pivot blocked panel solve
-    (:func:`panel_gj_solve_lanes` — e.g. the dense dim-518+ Newton
-    solves of net1, previously the ~10x-slower XLA-LU fallback;
-    HPFX_SCHUR=0 restores the LU).  CPU (f32 sweeps): XLA LU.  f64 (the
-    parity/x64 tests): raw XLA LU, bit-compatible with round-1 behavior.
-    ``b`` may be (B, n) or (B, n, R) (multi-RHS).
-    """
-    n = A.shape[-1]
+    """Batched dense solve, batch-major: A (B, n, n), b (B, n) or
+    (B, n, R) (multi-RHS).  f64: raw XLA LU; f32: XLA LU behind
+    :func:`equilibrated`."""
     if A.dtype == jnp.float64:
         return _lu_solve(A, b)
-    if jax.default_backend() == "cpu":
-        return equilibrated(_lu_solve)(A, b)
-    if not USE_PALLAS_SOLVE:
-        return equilibrated(_lu_solve_tpu)(A, b)
-    if n > MAX_PALLAS_DIM:
-        if SCHUR_MODE == "0" or panel_gj_width_for(n) == 0:
-            return equilibrated(_lu_solve_tpu)(A, b)
-        return equilibrated(_panel_gj_batch_major)(A, b)
-    return equilibrated(gauss_solve_pallas)(A, b)
-
-
-#: dims <= this use the statically-unrolled pure-XLA Gauss-Jordan on the
-#: lane-minor path.  At tiny dims the Pallas kernel pays one sequential
-#: grid step per 128 systems while XLA executes the same unrolled
-#: arithmetic as fused ops over the full (n, n, B) batch.  Measured on
-#: v5e at sweep shapes (honest sync): dim 8 XLA 4.97 ms vs Pallas 6.22 ms
-#: isolated, dim 26 tie, dim 40 Pallas wins 4x; END-TO-END the net2 sweep
-#: is identical either way (the tiny-dim solve is no longer the trip
-#: bottleneck), so this keeps the small isolated win and reduces Pallas
-#: launch surface.
-XLA_GJ_MAX_DIM = 16
-
-
-def gj_solve_xla_lanes(A, b):
-    """Statically-unrolled Gauss-Jordan with virtual partial pivoting, as
-    plain XLA ops on lane-minor operands: A (n, n, B), b (n, R, B).
-
-    Mathematically identical to the Pallas kernel's elimination
-    (hpfx/ops/batched_solve.py top docstring) — per-system pivot row
-    selected by max |A[r, k]| among unused rows, fused rank-1
-    update+normalization, solution recovered by one contraction since A
-    converges to a per-system permutation.  The loop over columns is
-    unrolled at trace time (n is static and small on this path), so the
-    column extraction is a static slice and XLA fuses each step into a
-    few kernels over the full batch — no per-128-lane grid serialization.
-    """
-    n, _, B = A.shape
-    R = b.shape[1]
-    row_nb = jax.lax.broadcasted_iota(jnp.int32, (n, B), 0)
-    used = jnp.zeros((n, B), A.dtype)
-    for k in range(n):
-        colk = A[:, k, :]                                      # (n, B)
-        score = jnp.abs(colk) - 1e30 * used
-        p = jnp.argmax(score, axis=0)                          # (B,)
-        on_p = (row_nb == p[None, :]).astype(A.dtype)          # (n, B)
-        rowp = jnp.sum(on_p[:, None, :] * A, axis=0)           # (n, B)
-        bp = jnp.sum(on_p[:, None, :] * b, axis=0)             # (R, B)
-        pivot = jnp.sum(on_p * colk, axis=0)                   # (B,)
-        inv_piv = 1.0 / pivot
-        w = (1.0 - on_p) * colk * inv_piv[None, :] + \
-            on_p * (1.0 - inv_piv[None, :])
-        A = A - w[:, None, :] * rowp[None, :, :]
-        b = b - w[:, None, :] * bp[None, :, :]
-        used = jnp.maximum(used, on_p)
-    return jnp.einsum("kib,krb->irb", A, b)
-
-
-def _gj_panel_kernel(a_ref, used_ref, ap_ref, te_ref, e_ref, usedo_ref,
-                     *, Pw: int, N: int, B: int):
-    """Tall-panel Gauss-Jordan elimination with FULL-column pivoting.
-
-    Eliminates the ``Pw`` columns of one panel ``a_ref (N, Pw, B)``,
-    selecting each pivot over ALL ``N`` rows not yet used (``used_ref``,
-    0/1 f32, carried across panels) — the same pivot sequence the direct
-    dim-N kernel would choose, unlike the panel-Schur solve whose
-    panel-restricted pivoting loses steps (BENCH_NOTES).  The trailing
-    update is NOT done here: each GJ step's transform is
-    T_k = I - w_k e_{p_k}^T, and the panel's composite T = prod_k T_k
-    satisfies T = I + Z E^T with E = the one-hot pivot columns and
-    Z = T·E - E.  T·E is computed in-kernel by injecting e_{p_k} as an
-    extra column at step k (earlier transforms leave it unchanged since
-    pivot rows are distinct) and letting steps k..Pw transform it.  The
-    caller applies the panel to the trailing matrix and RHS with two
-    lane-batched matmuls (MXU) per operand — the blocked economy —
-    while keeping pivoting exact.
-
-    Outputs: ``ap_ref`` the panel's converged columns (one-hot pivot
-    columns, used for the final recovery contraction), ``te_ref`` = T·E,
-    ``e_ref`` = E, ``usedo_ref`` the updated used mask.
-    """
-    row_nb = jax.lax.broadcasted_iota(jnp.int32, (N, B), 0)
-    colsel = jax.lax.broadcasted_iota(jnp.int32, (N, Pw, B), 1)
-
-    def step(k, carry):
-        A, TE, E, used = carry
-        colk = jnp.sum(jnp.where(colsel == k, A, 0.0), axis=1)     # (N,B)
-        score = jnp.abs(colk) - 1e30 * used
-        p = jnp.argmax(score, axis=0)                              # (B,)
-        on_p = (row_nb == p[None, :]).astype(A.dtype)              # (N,B)
-        # masked set of column k of E / TE to e_{p_k} (dynamic-index
-        # stores are not lowerable).  SAME-RANK select only: Mosaic
-        # miscompiles mixed-rank i1 vector ops on this backend
-        # (CLAUDE.md #4), so on_p is broadcast to the slab shape first
-        # (the sibling kernels' established pattern); measured 10%
-        # cheaper than 0/1 f32 mask arithmetic here
-        setk = colsel == k                                         # (N,Pw,B)
-        on_b = jnp.broadcast_to(on_p[:, None, :], E.shape)
-        E = jnp.where(setk, on_b, E)
-        TE = jnp.where(setk, on_b, TE)
-        rowp = jnp.sum(on_p[:, None, :] * A, axis=0)               # (Pw,B)
-        tep = jnp.sum(on_p[:, None, :] * TE, axis=0)               # (Pw,B)
-        pivot = jnp.sum(on_p * colk, axis=0)                       # (B,)
-        inv_piv = 1.0 / pivot
-        w = (1.0 - on_p) * colk * inv_piv[None, :] + \
-            on_p * (1.0 - inv_piv[None, :])                        # (N,B)
-        A = A - w[:, None, :] * rowp[None, :, :]
-        TE = TE - w[:, None, :] * tep[None, :, :]
-        return A, TE, E, jnp.maximum(used, on_p)
-
-    zero = jnp.zeros((N, Pw, B), jnp.float32)
-    A, TE, E, used = jax.lax.fori_loop(
-        0, Pw, step, (a_ref[:], zero, zero, used_ref[:]))
-    ap_ref[:] = A
-    te_ref[:] = TE
-    e_ref[:] = E
-    usedo_ref[:] = used
-
-
-def _panel_pallas(panel, used, *, Pw: int, N: int, Bb: int, G: int,
-                  interpret: bool):
-    """pallas_call wrapper: panel (G, N, Pw, Bb), used (G, N, Bb)."""
-    kernel = functools.partial(_gj_panel_kernel, Pw=Pw, N=N, B=Bb)
-    mem = {} if pltpu is None else dict(memory_space=pltpu.VMEM)
-    spec3 = pl.BlockSpec((None, N, Pw, Bb), lambda i: (i, 0, 0, 0), **mem)
-    spec2 = pl.BlockSpec((None, N, Bb), lambda i: (i, 0, 0), **mem)
-    return pl.pallas_call(
-        kernel,
-        grid=(G,),
-        in_specs=[spec3, spec2],
-        out_specs=[spec3, spec3, spec3, spec2],
-        out_shape=[jax.ShapeDtypeStruct((G, N, Pw, Bb), jnp.float32),
-                   jax.ShapeDtypeStruct((G, N, Pw, Bb), jnp.float32),
-                   jax.ShapeDtypeStruct((G, N, Pw, Bb), jnp.float32),
-                   jax.ShapeDtypeStruct((G, N, Bb), jnp.float32)],
-        interpret=interpret,
-        compiler_params=(None if pltpu is None else
-                         pltpu.CompilerParams(vmem_limit_bytes=VMEM_LIMIT)),
-        cost_estimate=pl.CostEstimate(
-            flops=6 * Pw * N * Pw * Bb * G,
-            bytes_accessed=4 * N * Pw * Bb * G * 4, transcendentals=0),
-    )(panel, used)
-
-
-#: panel width of the full-pivot blocked solve.
-PANEL_GJ_WIDTH = int(os.environ.get("HPFX_PANEL_GJ_WIDTH", "32"))
-
-#: live (Np, panel, BLOCK) f32 slabs of the panel kernel: pipelined input,
-#: the three outputs (Ap, TE, E), the A/TE loop carries, and compiler
-#: temporaries.  MEASURED, not derived: the Mosaic compile of Np=800,
-#: panel=32 reports a 113.84 MiB vmem stack = 8.7 slabs of 13.1 MiB;
-#: 9 is the conservative bound the feasibility check uses.
-_PANEL_LIVE_SLABS = 9
-
-
-def panel_gj_fits(n: int, panel: int = 0) -> bool:
-    """VMEM feasibility of :func:`panel_gj_solve_lanes` for dim ``n`` at
-    ``panel`` width.  Past the budget the Mosaic compile fails with a raw
-    VMEM-stack error; dispatchers consult this (and
-    :func:`panel_gj_width_for`) before launching."""
-    if panel <= 0:
-        panel = PANEL_GJ_WIDTH
-    panel = _round_up(max(panel, SUBLANE), SUBLANE)
-    Np = _round_up(n, panel)
-    return _PANEL_LIVE_SLABS * Np * panel * BLOCK * 4 <= VMEM_LIMIT
-
-
-def panel_gj_width_for(n: int, panel: int = 0) -> int:
-    """Largest feasible panel width <= the requested one for dim ``n``
-    (stepping down by sublanes), or 0 if even an 8-wide panel overflows
-    VMEM (n ~ 30k+; callers fall back to XLA LU)."""
-    if panel <= 0:
-        panel = PANEL_GJ_WIDTH
-    panel = _round_up(max(panel, SUBLANE), SUBLANE)
-    while panel >= SUBLANE:
-        if panel_gj_fits(n, panel):
-            return panel
-        panel -= SUBLANE
-    return 0
-
-
-def panel_gj_solve_lanes(A, b, panel: int = 0, interpret: bool = False):
-    """Blocked Gauss-Jordan solve with FULL partial pivoting, batch
-    lane-minor: A (n, n, B), b (n, R, B) -> x (n, R, B), f32.
-
-    The dim-n elimination is split into ceil(n/panel) tall-panel kernel
-    calls (:func:`_gj_panel_kernel`, pivoting over all rows — the exact
-    pivot rule of the direct kernel) stitched by lane-batched matmuls
-    for the trailing updates and the final recovery contraction.  The
-    per-column kernel work drops from O(n) to O(panel) while the O(n²)
-    bulk rides the MXU — and the (N, panel, B) slabs fit VMEM for any n,
-    so this is also the path past MAX_PALLAS_DIM (dense dim-518 Newton
-    solves included), replacing both the XLA-LU fallback and the
-    accuracy-compromised panel-Schur solve.
-    """
-    # panel must be a sublane multiple or Np // panel drops tail columns;
-    # large dims auto-shrink the width to stay inside the VMEM stack
-    # (measured overflow: Np=800 at width 32 wants 113.8 MiB)
-    panel = panel_gj_width_for(A.shape[0], panel)
-    if panel == 0:
-        raise ValueError(
-            f"system dim {A.shape[0]} exceeds the panel-GJ kernel's VMEM "
-            f"feasibility even at the minimum panel width "
-            f"({_PANEL_LIVE_SLABS} live slabs vs {VMEM_LIMIT >> 20} MiB); "
-            "use batched_solve_lanes() for the XLA-LU fallback")
-    hp = jax.lax.Precision.HIGHEST
-    n, _, Bt = A.shape
-    R = b.shape[1]
-    Np = _round_up(n, panel)
-    Bb = BLOCK
-    Bp = _round_up(Bt, Bb)
-    G = Bp // Bb
-
-    # pad: identity diagonal on pad rows/cols (pad columns then pick pad
-    # rows as their pivots, exactly once), zero RHS on pad rows
-    Af = jnp.zeros((Np, Np, Bp), jnp.float32)
-    Af = Af.at[:n, :n, :Bt].set(A.astype(jnp.float32))
-    if Np > n:
-        pad_eye = jnp.eye(Np, dtype=jnp.float32)[n:, :].T   # (Np, Np-n)
-        Af = Af.at[:, n:, :].set(pad_eye[:, :, None])
-    bf = jnp.zeros((Np, R, Bp), jnp.float32)
-    bf = bf.at[:n, :, :Bt].set(b.astype(jnp.float32))
-
-    used = jnp.zeros((Np, Bp), jnp.float32)
-    n_panels = Np // panel
-    final_cols = []
-    for j in range(n_panels):
-        lo, hi = j * panel, (j + 1) * panel
-        panel_j = Af[:, lo:hi]                              # (Np, Pw, Bp)
-        pj = panel_j.reshape(Np, panel, G, Bb).transpose(2, 0, 1, 3)
-        uj = used.reshape(Np, G, Bb).transpose(1, 0, 2)
-        Ap, TE, E, used_o = _panel_pallas(pj, uj, Pw=panel, N=Np, Bb=Bb,
-                                          G=G, interpret=interpret)
-        back3 = lambda x: x.transpose(1, 2, 0, 3).reshape(Np, panel, Bp)
-        Ap, TE, E = back3(Ap), back3(TE), back3(E)
-        used = used_o.transpose(1, 0, 2).reshape(Np, Bp)
-        Z = TE - E
-        if hi < Np:
-            trail = Af[:, hi:]
-            piv = jnp.einsum("nkb,njb->kjb", E, trail, precision=hp)
-            Af = Af.at[:, hi:].set(
-                trail + jnp.einsum("nkb,kjb->njb", Z, piv, precision=hp))
-        pivb = jnp.einsum("nkb,nrb->krb", E, bf, precision=hp)
-        bf = bf + jnp.einsum("nkb,krb->nrb", Z, pivb, precision=hp)
-        final_cols.append(Ap)
-
-    A_final = jnp.concatenate(final_cols, axis=1)           # (Np, Np, Bp)
-    x = jnp.einsum("nkb,nrb->krb", A_final, bf, precision=hp)
-    return x[:n, :, :Bt].astype(A.dtype)
-
-
-#: dims above this are eligible for a blocked solve on the TPU lane-minor
-#: path (panel GJ via impl="panel"/Settings.big_solve — the default —
-#: or the pivot-compromised panel-Schur via impl="schur").  The Pallas GJ
-#: elimination is VPU work (one rank-1 slab update per column); the
-#: blocked forms do only a PANEL-wide elimination in the kernel and push
-#: the trailing update into lane-batched matmuls.  Below the threshold
-#: the extra launches outweigh the flop shuffle.
-SCHUR_MIN_DIM = 128
-#: panel width.  Measured on v5e at dim 182 / B=512 (the net1 H<=25
-#: Woodbury capacitance system): panel 24/32/48/64 -> 5.4/5.2/5.7/6.9 ms
-#: vs 16.3 ms for the direct dim-182 kernel (3.1x) and 8.4 ms for a
-#: single even split (panel 96).
-SCHUR_PANEL = int(os.environ.get("HPFX_SCHUR_PANEL", "32"))
-#: HPFX_SCHUR=1 (default) uses the full-pivot blocked panel-GJ solve
-#: where the direct kernel cannot go (n > MAX_PALLAS_DIM, previously the
-#: ~10x-slower XLA LU); HPFX_SCHUR=mid additionally replaces the direct
-#: kernel with panel GJ for SCHUR_MIN_DIM < n <= MAX_PALLAS_DIM (what
-#: Settings.big_solve="panel" selects per-call); HPFX_SCHUR=0 disables
-#: both blocked paths (XLA-LU fallback for oversized dims).  The
-#: pivot-compromised panel-SCHUR variant is reachable only explicitly
-#: (Settings.big_solve="schur" / impl="schur") — it is measured-negative
-#: for Newton convergence and never env-selected.
-SCHUR_MODE = os.environ.get("HPFX_SCHUR", "1")
-
-
-def schur_solve_lanes(A, b, leaf=None, panel: int = SCHUR_PANEL):
-    """Blocked (right-looking) solve for large dims, batch lane-minor:
-    A (n, n, B), b (n, R, B) -> x (n, R, B).
-
-    Classic blocked LU/Schur recursion with panel width ``panel``:
-
-        [A11 A12] [x1]   [b1]
-        [A21 A22] [x2] = [b2]
-
-        A11 [X12 | y1] = [A12 | b1]      pivoted GJ, dim panel, multi-RHS
-        S = A22 - A21 X12                lane-batched matmul (MXU)
-        S x2 = b2 - A21 y1               recurse on the trailing system
-        x1 = y1 - X12 x2                 lane-batched matmul
-
-    Each panel solve keeps the lane-parallel kernel's virtual partial
-    pivoting *within* its ``panel`` rows; there are no row exchanges
-    across panels (block LU with block-diagonal pivoting).  Callers
-    equilibrate first (the batched_solve_lanes dispatcher does), which
-    keeps the panel eliminations well-scaled on HPF capacitance systems
-    (S = I + C·G, near-unit diagonal); f32 accuracy vs the fully pivoted
-    elimination is regression-tested on capacitance-style random systems
-    in tests/test_ops.py — but on REAL mid-Newton systems the panel-
-    restricted pivoting measurably degrades step quality (see
-    Settings.big_solve docs); prefer panel_gj_solve_lanes.
-
-    Also covers dims beyond the kernel's VMEM budget (net1 H<=51:
-    r = 364), which previously fell back to the ~10x-slower XLA LU.
-
-    ``leaf``: the panel/trailing solver (n, n, B), (n, R, B) ->
-    (n, R, B); defaults to the Pallas kernel on TPU.  Tests inject a
-    LAPACK leaf to validate the block algebra on CPU.
-    """
-    if leaf is None:
-        leaf = gauss_solve_pallas_lanes
-    n = A.shape[0]
-    if n <= panel + SUBLANE:
-        return leaf(A, b)
-    n1 = panel
-    n2 = n - n1
-
-    A11, A12 = A[:n1, :n1], A[:n1, n1:]
-    A21, A22 = A[n1:, :n1], A[n1:, n1:]
-    b1, b2 = b[:n1], b[n1:]
-
-    rhs1 = jnp.concatenate([A12, b1], axis=1)       # (n1, n2 + R, B)
-    sol1 = leaf(A11, rhs1)
-    X12, y1 = sol1[:, :n2], sol1[:, n2:]            # (n1,n2,B), (n1,R,B)
-
-    hp = jax.lax.Precision.HIGHEST
-    S = A22 - jnp.einsum("ikb,kjb->ijb", A21, X12, precision=hp)
-    rhs2 = b2 - jnp.einsum("ikb,krb->irb", A21, y1, precision=hp)
-    x2 = schur_solve_lanes(S, rhs2, leaf=leaf, panel=panel)
-    x1 = y1 - jnp.einsum("ikb,krb->irb", X12, x2, precision=hp)
-    return jnp.concatenate([x1, x2], axis=0)
+    return equilibrated(_lu_solve)(A, b)
 
 
 def equilibrated_lanes(solve):
@@ -738,56 +80,25 @@ def equilibrated_lanes(solve):
 
 
 def _lu_solve_lanes(A, b):
-    """LAPACK/XLA-LU fallback for batch-minor operands (relayout both ways)."""
-    Am = jnp.moveaxis(A, -1, 0)
-    bm = jnp.moveaxis(b, -1, 0)
-    lu = _lu_solve_tpu if jax.default_backend() == "tpu" else _lu_solve
-    return jnp.moveaxis(lu(Am, bm), 0, -1)
+    """XLA LU on batch-minor operands (relayout both ways)."""
+    x = jnp.linalg.solve(jnp.moveaxis(A, -1, 0), jnp.moveaxis(b, -1, 0))
+    return jnp.moveaxis(x, 0, -1)
 
 
-def batched_solve_lanes(A, b, impl: str = "auto"):
-    """Batch-minor twin of :func:`batched_solve`: A (n, n, B), b (n, R, B).
+_LANE_ROUTES = {
+    "lu": _lu_solve_lanes,
+    "lu_equilibrated": equilibrated_lanes(_lu_solve_lanes),
+    "gj_triton": equilibrated_lanes(gj_solve_triton_lanes),
+}
 
-    The dispatch mirrors batched_solve (Pallas lane-parallel kernel on TPU
-    with equilibration; XLA LU on CPU / for oversized dims; raw LAPACK for
-    f64) but operands stay lane-minor end to end on the fast path.
 
-    ``impl`` selects the large-dim strategy (n > SCHUR_MIN_DIM):
-    "direct" = the fully-pivoted monolithic kernel, "panel" = the
-    full-pivot blocked panel GJ (same pivot rule, ~20% faster e2e —
-    Settings.big_solve carries the caller's choice), "schur" = the
-    pivot-compromised blocked variant (measured-negative for Newton
-    convergence; explicit opt-in only), "auto" = the HPFX_SCHUR env
-    default.  Dims beyond the kernel's VMEM budget use panel GJ
-    regardless (the XLA-LU fallback is ~10x slower and crash-prone)
-    unless HPFX_SCHUR=0.
-    """
-    n = A.shape[0]
-    if A.dtype == jnp.float64:
-        return jnp.moveaxis(jnp.linalg.solve(
-            jnp.moveaxis(A, -1, 0), jnp.moveaxis(b, -1, 0)), 0, -1)
-    if jax.default_backend() == "cpu" or not USE_PALLAS_SOLVE:
-        return equilibrated_lanes(_lu_solve_lanes)(A, b)
-    if n <= XLA_GJ_MAX_DIM:
-        return equilibrated_lanes(gj_solve_xla_lanes)(A, b)
-    if n > MAX_PALLAS_DIM:
-        # past the direct kernel's VMEM budget: the full-pivot blocked
-        # panel solve (same pivot rule, MXU trailing updates); "schur"
-        # keeps the faster-but-pivot-compromised variant; HPFX_SCHUR=0
-        # (or a dim past even the panel kernel's VMEM feasibility)
-        # restores the XLA-LU fallback
-        if SCHUR_MODE == "0" or panel_gj_width_for(n) == 0:
-            return equilibrated_lanes(_lu_solve_lanes)(A, b)
-        if impl == "schur":
-            return equilibrated_lanes(schur_solve_lanes)(A, b)
-        return equilibrated_lanes(panel_gj_solve_lanes)(A, b)
-    if impl == "schur" and n > SCHUR_MIN_DIM:
-        return equilibrated_lanes(schur_solve_lanes)(A, b)
-    want_panel = (impl == "panel"
-                  or (impl == "auto" and SCHUR_MODE == "mid"))
-    if want_panel and n > SCHUR_MIN_DIM:
-        return equilibrated_lanes(panel_gj_solve_lanes)(A, b)
-    return equilibrated_lanes(gauss_solve_pallas_lanes)(A, b)
+def batched_solve_lanes(A, b):
+    """Batch-minor twin of :func:`batched_solve`: A (n, n, B), b (n, R, B)
+    -> x (n, R, B).  Operands stay lane-minor end to end; the route is
+    :func:`hpfx.ops.dispatch.solve_route` of the traced backend, dtype
+    and dim."""
+    route = solve_route(jax.default_backend(), A.dtype, A.shape[0])
+    return _LANE_ROUTES[route](A, b)
 
 
 @jax.custom_batching.custom_vmap
@@ -798,12 +109,11 @@ def solve_blocks(D, rhs):
     dense factorization per harmonic block, shared by the mismatch RHS and
     the Woodbury U columns.  Under ``vmap`` — the scenario sweep — the
     rule below flattens the (scenario, harmonic) axes into one big batch
-    for the Pallas lane-parallel Gauss-Jordan kernel, which is where the
-    structured path earns its keep on TPU (the (B·H, 2n) batch at small k
-    beats one (B,) batch at dimension 2·H·n by ~H² in flops).  A single
-    scenario's (H, k, k) blocks are already a batch and use the same
-    dispatcher (equilibration + TPU-LU workarounds) for f32; f64 keeps the
-    raw LAPACK solve for reference parity.
+    for :func:`batched_solve` (the (B·H, 2n) batch at small k beats one
+    (B,) batch at dimension 2·H·n by ~H² in flops).  A single scenario's
+    (H, k, k) blocks are already a batch and use the same dispatcher
+    (with equilibration) for f32; f64 keeps the raw LU for reference
+    parity.
     """
     if D.dtype == jnp.float64:
         return jnp.linalg.solve(D, rhs)
@@ -828,12 +138,10 @@ def nr_solve(J, f):
     """The Newton-Raphson linear solve J·dx = f.
 
     Under ``vmap`` — the scenario sweep — the custom batching rule below
-    routes the whole batch through ``batched_solve`` (the Pallas
-    lane-parallel kernel on TPU), instead of letting XLA lower a batched
-    LU that runs ~30x slower at HPF Jacobian sizes.  Single f32 solves go
-    through the same dispatcher as a batch of one, so they get the same
-    equilibration and TPU-LU workarounds the swept path relies on; f64
-    keeps the raw LAPACK solve the reference-parity gates were tuned on.
+    routes the whole batch through one :func:`batched_solve` call.
+    Single f32 solves go through the same dispatcher as a batch of one,
+    so they get the same equilibration the swept path relies on; f64
+    keeps the raw LU the reference-parity gates were tuned on.
     """
     if J.dtype == jnp.float64:
         return jnp.linalg.solve(J, f)

@@ -19,7 +19,7 @@ two jitted programs (solve, gradient) are traced once — network line
 arrays are pytree leaves, so parameter changes never retrace.
 
 This is an offline design tool: the loop is Python (tens of solves),
-each solve/gradient is a compiled TPU/CPU program.  For very many
+each solve/gradient is a compiled program.  For very many
 design variables the same gradients batch through
 :func:`hpfx.sensitivity.sweep_sensitivity` instead.
 """

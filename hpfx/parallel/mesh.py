@@ -1,15 +1,16 @@
-"""Scenario-axis sharding over TPU meshes (GSPMD / jax.sharding).
+"""Scenario-axis sharding over device meshes (GSPMD / jax.sharding).
 
 The HPF scenario sweep is embarrassingly parallel (SURVEY §2.6, §5.8): the
 only cross-scenario communication is the final statistics reduction of a
 hosting-capacity sweep.  The design is therefore a 1-D ``Mesh`` over all
-chips with the batch axis sharded (the data-parallel analogue) and the
-network/device pytrees replicated; XLA inserts the ICI all-reduce for the
-aggregate automatically.
+devices with the batch axis sharded (the data-parallel analogue) and the
+network/device pytrees replicated; XLA inserts the cross-device all-reduce
+for the aggregate automatically.
 
-Works identically on a real TPU pod slice and on the CPU-mesh simulator
-(``--xla_force_host_platform_device_count=N``), which is how tests and the
-driver's multi-chip dry-run validate the sharded program without hardware.
+Works identically on several GPUs of one host (``chip_smoke.py
+--multichip``) and on the CPU-mesh simulator
+(``--xla_force_host_platform_device_count=N``), which is how the tests
+validate the sharded programs without accelerators.
 """
 from __future__ import annotations
 
@@ -57,7 +58,7 @@ def hpf_mesh(n_scenario: int, n_harmonic: int, devices=None) -> Mesh:
     scenarios ride the first axis, the per-scenario harmonic blocks are
     model-parallel over the second.  Collectives for the cross-harmonic
     Norton coupling and the Woodbury capacitance reduction stay inside a
-    harmonic group (ICI-local on a pod slice)."""
+    harmonic group (on one host's NVLink for a 2 x 2 mesh)."""
     if devices is None:
         devices = jax.devices()
     devices = np.asarray(devices[:n_scenario * n_harmonic]).reshape(
@@ -287,7 +288,7 @@ def hosting_capacity_sharded(net: Network, devices: DeviceSet,
     """Sharded Monte-Carlo hosting-capacity sweep.
 
     Per-scenario outputs stay sharded; the over-limit fraction is a global
-    mean XLA lowers to an ICI all-reduce.  Non-mesh-divisible batches are
+    mean XLA lowers to a cross-device all-reduce.  Non-mesh-divisible batches are
     padded; padding is masked out of the aggregate and sliced off the
     per-scenario outputs.
     """

@@ -7,9 +7,9 @@ and *which* standard design to use — a discrete grid of (bus, tuned
 order, capacitor size, topology) candidates, each of which requires a
 full harmonic power flow to evaluate honestly (a filter detunes every
 resonance and re-routes harmonic current through the feeder; see
-BENCH_NOTES "round 4 — filter-design loop" (c)).
+CLAUDE.md #15).
 
-TPU-native shape: the candidate grid IS a batch axis.  A shunt filter
+Batched shape: the candidate grid IS a batch axis.  A shunt filter
 only touches the Ybus *diagonal*, so every candidate rides the solvers'
 ``Y_diag`` threading (hpfx.loadmodel's channel — the stable line-
 structured mismatch stays exactly valid) as a one-hot outer product,
@@ -139,7 +139,7 @@ def screen_filter_placement(
     collapse guard as :func:`hpfx.optimize.optimize_filter`: a candidate
     whose fundamental voltage leaves the window at ANY bus is rejected,
     because a pure-THD objective has a degenerate minimum at voltage
-    collapse (measured, BENCH_NOTES round 4 (a)).
+    collapse (measured, CLAUDE.md #15).
 
     ``Y_diag``: pre-existing per-bus diagonal admittance (H, n) — prior
     filters from :func:`plan_filter_bank` and/or a hpfx.loadmodel damping

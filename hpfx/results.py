@@ -41,7 +41,7 @@ def waveform(V_m, V_a, harmonics, n_samples: int = 1024):
 
     ``v`` has shape (n_samples, ...).  Implemented as two (T, H)·(H, ...)
     contractions (cos(hθ+φ) expanded), so it is jit/vmap-safe and
-    MXU-shaped; use it device-side for batched waveform screens.
+    matmul-shaped; use it device-side for batched waveform screens.
     """
     V_m, V_a = jnp.asarray(V_m), jnp.asarray(V_a)
     h = jnp.asarray(harmonics, V_m.dtype)

@@ -222,7 +222,7 @@ def sweep_sensitivity(
     gradient of ``functional`` — the "distortion headroom per knob"
     surface of a hosting-capacity Monte-Carlo.  The reference has no
     derivative capability at all; here the whole (B,)-batch of implicit
-    -function-theorem solves shares one traced program (TPU-friendly: the
+    -function-theorem solves shares one traced program (the
     arrow column solves batch through the same custom-vmap path the sweep
     itself uses).
 

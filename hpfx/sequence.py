@@ -25,7 +25,7 @@ spectra:
 - **Fortescue transform** (:func:`sequence_components` /
   :func:`phase_components`): the general (a, b, c) <-> (0, 1, 2) map for
   *measured* unbalanced phasor sets, split-complex like everything else
-  in hpfx (no complex dtypes on this TPU backend).
+  in hpfx.
 
 References: Fortescue decomposition and the h-mod-3 rule are textbook
 (e.g. Arrillaga & Watson, "Power System Harmonics", ch. 2); the
@@ -310,7 +310,7 @@ def delta_device_set(devices, settings, delta: Sequence[int]):
     COLUMNS (no response TO triplen voltage) of Y_N vanish.  ``delta``
     lists device indices (0 = first nonlinear bus).
 
-    Caution (CLAUDE.md #39a physics): if EVERY triplen source is removed
+    Caution (CLAUDE.md #13 physics): if EVERY triplen source is removed
     and nothing else excites those orders, the exact solution V_h = 0 is
     singular in the polar state and NR honestly reports non-convergence —
     keep at least one wye device or a background source per triplen order.

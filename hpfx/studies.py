@@ -6,10 +6,10 @@ single-case driver); real compatibility-level work is statistical — IEC
 61000-3-6 assesses the 95th percentile of each harmonic against planning
 levels, and IEEE 519-2014 applies its Table 1 limits to the 95th
 percentile of measured 10-min values over a week.  Both reduce to the
-same TPU-native shape: a big batched sweep (scenario draws, or time-step
+same batched shape: a big batched sweep (scenario draws, or time-step
 profiles) followed by quantile reductions over the batch axis — one
 compiled program end to end, riding the exact solver shapes the bench
-already validates (no new kernel shapes).
+already validates.
 
 Two entry points:
 

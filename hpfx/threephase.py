@@ -50,7 +50,7 @@ zero-sequence network) exactly; random unbalanced cases match an
 independent numpy complex assembly+solve.
 
 Everything is split-complex, statically shaped and jittable; the
-per-order solves batch over H on the MXU.
+per-order solves batch over H.
 """
 from typing import NamedTuple, Optional, Mapping, Sequence, Tuple
 

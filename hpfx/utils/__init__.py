@@ -1,10 +1,8 @@
-from .backend import backend_guard
 from .precision import highest_precision
 from .profiling import debug_nans, profile_trace
 from .timing import PhaseTimer
 
 __all__ = [
-    "backend_guard",
     "highest_precision",
     "PhaseTimer",
     "debug_nans",

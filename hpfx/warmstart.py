@@ -55,7 +55,7 @@ def _floor_seed_mag(V_m_h, settings: Settings):
     A harmonic order with no source (e.g. triplen rows of a spectrum
     with zeros) has the exact linear solution V_h = 0 — a polar-singular
     NR start: the angle-Jacobian column scales with V_m and vanishes,
-    risking inf/NaN steps (CLAUDE.md #39/#40).  Only rows that solved to
+    risking inf/NaN steps (CLAUDE.md #12/#17).  Only rows that solved to
     ~exact fp zero are lifted (a zero RHS block solves to exactly 0);
     legitimately-small sourced magnitudes are untouched, so the seed
     stays exact on every sourced row (test_seed_zeroes_harmonic_rows).

@@ -1,13 +1,12 @@
-"""Per-harmonic admittance (Ybus) assembly — split-complex, TPU-native.
+"""Per-harmonic admittance (Ybus) assembly — split-complex, batched.
 
-TPU-native replacement for the reference's nested Python loops
+Vectorized replacement for the reference's nested Python loops
 (``hcne_generalized.py:132-171`` build_admittance_matrices): one vectorized
 scatter-add over the line arrays builds all harmonics at once into a dense
 ``(H, n, n)`` split-complex tensor (``hpfx.cx.Cx``: separate re/im real
-arrays — this image's TPU backend has no complex element types, and split
-storage is the MXU-friendly layout anyway).  For grid sizes in scope
-(n up to a few hundred) dense per-harmonic blocks are the right layout on
-TPU; the global block-diagonal structure across harmonics stays implicit.
+arrays).  For grid sizes in scope (n up to a few hundred) dense
+per-harmonic blocks are the layout; the global block-diagonal structure
+across harmonics stays implicit.
 
 Physics (identical to the reference at tau=1, shift=0):
 - series element per line: Ys(h) = 1/(R + j·X·h)        (:151-155)
@@ -245,8 +244,8 @@ def stable_matvec(lineY: LineYbus, V_m, V_a) -> Cx:
     with each line's voltage difference evaluated by :func:`_polar_diff`,
     so every flow term carries rounding relative to the flow itself.  The
     f32 residual floor drops ~two orders of magnitude, which is what makes
-    reference-threshold convergence attainable on TPU hardware (measured
-    on net1 H<=25: dense-form floor 7.9e-5, this form ~1e-6).
+    reference-threshold convergence attainable in f32 (measured on net1
+    H<=25: dense-form floor 7.9e-5, this form ~1e-6).
     """
     f, t = lineY.f_idx, lineY.t_idx
     mu_f = V_m[:, f] * lineY.a_ff          # a_ff real: 1/tau^2

@@ -179,8 +179,8 @@ def test_background_sweep_matches_vmapped_hpf():
 def test_background_sweep_f64_knife_edge_rescue():
     """Rescue engagement: an f32 threshold below the f32 evaluation
     floor defeats both f32 rescue passes; the f64 fallback must still
-    deliver conv 1.000 (the round-4 background study's conv-0.963 class,
-    VERDICT round-4 item 3)."""
+    deliver conv 1.000 (the background study's knife-edge class,
+    CLAUDE.md #3)."""
     import os
 
     from conftest import DATA

@@ -1,6 +1,6 @@
-"""f32 (TPU-numerics) regression tests, run on CPU.
+"""f32 (sweep-numerics) regression tests, run on CPU.
 
-The TPU executes everything in f32 with HIGHEST-precision matmuls; these
+The accelerator sweeps run in f32 with HIGHEST-precision matmuls; these
 tests pin down that the solver still converges under f32 and stays within
 the expected distance of the f64 goldens — the failure mode guarded
 against is precision regressions (e.g. losing the HIGHEST matmul override,
@@ -84,8 +84,8 @@ def test_f32_net1_reference_scale_converges():
     """Round-2 gate: the f32 fast path converges at *reference scale*
     (net1, J dim 518) with the stable mismatch + floor-aware criterion +
     equilibrated Newton solves, and the solution matches the f64 golden.
-    Without these the residual stalls at ~3e-4 > thresh_h (see
-    BENCH_NOTES.md round-2 section)."""
+    Without these the residual stalls at ~3e-4 > thresh_h (CLAUDE.md
+    #2; PERF.md, numerics history)."""
     import jax.numpy as jnp
 
     from hpfx.solve import Scenarios, hpf_sweep_adaptive
@@ -112,6 +112,31 @@ def test_f32_net1_reference_scale_converges():
                             phase2_settings=s32.with_(solver="dense"))
     assert bool(np.asarray(r1.converged)[0])
     assert np.abs(np.asarray(r1.V_m)[0] - g["V_m"]).max() < 3e-4
+
+
+@pytest.mark.parametrize("h_max,bound", [(25, 3e-4), (51, 2e-3)])
+def test_f32_net1_sweep_accuracy_vs_f64(h_max, bound):
+    """The f32 sweep against float64 per-scenario solves over the bench's
+    spread (the bounds chip_smoke.py holds the card to): floor-aware f32
+    stopping leaves ~1.6e-4 at H<=25 and ~1.6e-3 at H<=51, whose dim-1038
+    evaluation floor sits several times above thresh_h."""
+    import os
+    import sys
+
+    import jax.numpy as jnp
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
+    import chip_smoke as cs
+    from hpfx.solve import hpf_sweep_adaptive
+
+    s = cs._settings(h_max)
+    net, dev = cs._fixture("net1", s)
+    p, q, i = (x[[0, 128, 255]] for x in cs._scen_np(256))
+    res = hpf_sweep_adaptive(net, dev, s, cs._to_scenarios(
+        p, q, i, jnp.float32), phase_iters=30)
+    V_ref, conv_ref = cs.reference_f64("net1", h_max, p, q, i)
+    assert np.asarray(res.converged).all() and conv_ref.all()
+    assert np.abs(np.asarray(res.V_m) - V_ref).max() < bound
 
 
 def test_f32_net1_single_solve_converges():

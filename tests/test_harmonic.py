@@ -1,5 +1,5 @@
 """Harmonic HPF parity against reference fixtures
-(hpf, hcne_generalized.py:511-560) — the 1e-8 BASELINE gate and beyond."""
+(hpf, hcne_generalized.py:511-560) — the 1e-8 parity gate and beyond."""
 import jax
 import numpy as np
 
@@ -37,7 +37,7 @@ def test_first_iteration_parity(config):
 
 
 def test_hpf_voltage_parity(config):
-    """Final voltages/THD within 1e-8 of the reference (BASELINE gate),
+    """Final voltages/THD within 1e-8 of the reference (parity gate),
     with identical iteration counts."""
     g = load_golden(config)
     s, net, dev = make_setup(config)
@@ -66,7 +66,7 @@ def test_hpf_voltage_parity(config):
         return
     if config in LOOSE_ITERS:
         # iteration-count parity is chaotic-transient on this config
-        # (CLAUDE.md #25: even replicating the reference's spsolve moves
+        # (CLAUDE.md parity contract: even replicating the reference's spsolve moves
         # the count); the tested invariant backing the loosened bound is
         # that the CONVERGED STATE is the same fixed point to ~fp noise
         # (far inside the 1e-8 parity gate below)

@@ -384,7 +384,7 @@ def test_damped_filters_suppress_band_in_full_hpf(tmp_path):
     broadband topologies spread their admittance across the band, which
     is why the coupled-model per-order tracking the tuned test does is
     meaningless here (coupled cross-harmonic re-emission redistributes
-    the diverted current — CLAUDE.md #36c physics)."""
+    the diverted current — CLAUDE.md #15 physics)."""
     from hpfx.harmonic import hpf
 
     s = hpfx.settings_for_hmax(25, coupled=False)

@@ -1,6 +1,6 @@
 """Lane-major (batch-minor) sweep path: equivalence with the vmap path.
 
-The lanes path (hpfx.lanes) is the TPU-fast layout of the exact same
+The lanes path (hpfx.lanes) is the batch-last layout of the exact same
 batched solver hpfx.solve.hpf_sweep runs under vmap; these tests pin down
 that both layouts compute the same iteration.  Comparisons allow the
 fp-reorder noise Newton amplifies near the convergence threshold: the two
@@ -184,34 +184,19 @@ def test_lanes_sharded_matches_unsharded():
     assert _phasor_dist(take(r_sh), take(r_un)) < 5e-4
 
 
-def test_gj_solve_xla_lanes():
-    """Statically-unrolled pure-XLA Gauss-Jordan (the tiny-dim solve of
-    the lane-minor dispatch) vs LAPACK."""
-    from hpfx.ops.batched_solve import gj_solve_xla_lanes
-    rng = np.random.default_rng(2)
-    for n, R, B in [(8, 3, 100), (16, 1, 64)]:
-        A = rng.standard_normal((B, n, n)).astype(np.float32)
-        A += n * np.eye(n, dtype=np.float32)
-        b = rng.standard_normal((B, n, R)).astype(np.float32)
-        x_ref = np.linalg.solve(A, b)
-        x = gj_solve_xla_lanes(jnp.moveaxis(jnp.asarray(A), 0, -1),
-                               jnp.moveaxis(jnp.asarray(b), 0, -1))
-        np.testing.assert_allclose(np.moveaxis(np.asarray(x), -1, 0),
-                                   x_ref, atol=2e-4)
-
-
 def test_solve_lanes_kernel_interpret():
-    """Batch-minor Pallas entry (interpret mode) vs LAPACK."""
-    from hpfx.ops.batched_solve import gauss_solve_pallas_lanes
+    """Batch-minor Pallas kernel through Triton (interpret mode) vs
+    LAPACK."""
+    from hpfx.ops.gj_triton import gj_solve_triton_lanes
     rng = np.random.default_rng(1)
-    n, R, B = 18, 3, 40
+    n, R, B = 14, 3, 40
     A = rng.standard_normal((B, n, n)).astype(np.float32)
     A += n * np.eye(n, dtype=np.float32)
     b = rng.standard_normal((B, n, R)).astype(np.float32)
     x_ref = np.linalg.solve(A, b)
     Al = jnp.moveaxis(jnp.asarray(A), 0, -1)
     bl = jnp.moveaxis(jnp.asarray(b), 0, -1)
-    x = gauss_solve_pallas_lanes(Al, bl, interpret=True)
+    x = gj_solve_triton_lanes(Al, bl, interpret=True)
     np.testing.assert_allclose(np.moveaxis(np.asarray(x), -1, 0), x_ref,
                                atol=2e-4)
 
@@ -319,7 +304,7 @@ def test_adaptive_lanes_matches_host_adaptive():
     the host's phase-2 bucket — fp-identical states and exact
     per-scenario iteration counts; in f32 the two compiled schedules
     differ by fp noise, which the knife-edge iteration counts amplify
-    (CLAUDE.md #24), so the gates are conv-flag equality, small count
+    (CLAUDE.md #3), so the gates are conv-flag equality, small count
     drift, and state agreement at the convergence level."""
     from functools import partial
 
@@ -392,8 +377,8 @@ def test_hpf_sweep_device_rescue_overflow():
     """hpf_sweep_device = the single-program adaptive sweep + the host
     _rescue_sweep engaged only when lanes remain unconverged.  With a
     deliberately overflowed static rescue_width (1 lane for several
-    stragglers — the net1-B2048 A/B failure mode, conv 0.87 vs 1.000,
-    BENCH_NOTES round 4) the device program must leave honest
+    stragglers — the gather-overflow failure mode of straggler-heavy
+    net1 batches) the device program must leave honest
     unconverged lanes and the wrapper's host rescue must recover ALL of
     them to the host-adaptive fixed points; with the default width the
     rescue is a no-op and the wrapper returns the device result as-is."""
@@ -482,8 +467,7 @@ def test_adaptive_lanes_bucketed_rescue_widths():
     covering the straggler count.  phase_iters=1 leaves ~everything
     unconverged, overflowing a width-2 bucket — the single narrow width
     must under-converge honestly while the bucketed program escalates to
-    the full-width bucket and converges everything (VERDICT round-4
-    item 4)."""
+    the full-width bucket and converges everything."""
     from functools import partial
 
     import jax

@@ -65,7 +65,7 @@ def test_unsorted_buses_rejected_then_sorted(tmp_path):
 def test_malformed_csv_rejected_on_load(tmp_path):
     """load_network validates by default: a zero-impedance line and an
     unreachable bus raise the written errors instead of silently producing
-    wrong physics (round-2 VERDICT weak #4)."""
+    wrong physics."""
     buses = tmp_path / "b.csv"
     lines = tmp_path / "l.csv"
     buses.write_text(

@@ -85,7 +85,7 @@ def test_branch_duty_accounting(net2c, screen):
 
 def test_collapse_guard_rejects(net2c):
     """A near-short x_cap candidate must be rejected, not ranked first
-    (the degenerate pure-THD minimum, BENCH_NOTES round 4 (a))."""
+    (the degenerate pure-THD minimum, CLAUDE.md #15)."""
     s, net, dev = net2c
     rep = pl.screen_filter_placement(
         net, dev, s, buses=[3], h_tunes=[4.85], x_caps=[3e-3, 1.0],

@@ -49,7 +49,7 @@ def test_jacobian_is_exact_derivative(seed, coupled):
     x0 = harmonic.harmonic_state_vector(V_m, V_a, c)
     # jit both evaluations: executing them eagerly compiles hundreds of
     # tiny ops per case, which sporadically segfaults XLA:CPU's
-    # compiler in-suite (see CLAUDE.md #21)
+    # compiler in-suite (see CLAUDE.md #7)
     J_ad = np.asarray(jax.jit(jax.jacfwd(f_of_x))(x0))
     J_hand = np.asarray(jax.jit(
         harmonic.build_harmonic_jacobian,

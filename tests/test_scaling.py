@@ -1,4 +1,4 @@
-"""Scaling beyond the reference's n=20 (round-3 VERDICT item 3): synthetic
+"""Scaling beyond the reference's n=20: synthetic
 feeders at n in {64, 128} with 12-30 nonlinear devices, gated by
 self-consistency (autodiff-vs-hand Jacobian, residual convergence,
 arrow-vs-dense equality) — no reference oracle exists at this size, so the
@@ -88,7 +88,7 @@ def test_n128_converges_with_independent_residual():
 
 
 def test_n64_sweep_lanes_matches_vmap():
-    """The TPU production layout (lanes) computes the identical n=64 sweep
+    """The lane-major layout (lanes) computes the identical n=64 sweep
     as the vmap path, per-device injection scales included."""
     from hpfx.solve import Scenarios, hpf_sweep
     s, net, dev = _setup(64, 12, 7, solver="arrow")

@@ -196,8 +196,8 @@ def test_adaptive_sweep_with_device_axes():
 
 
 def test_hosting_capacity_with_mixes():
-    """The Monte-Carlo aggregate runs over mixes (the BASELINE.md
-    north-star use case: which EV is at which bus, at what count)."""
+    """The Monte-Carlo aggregate runs over mixes (the hosting-capacity
+    use case: which EV is at which bus, at what count)."""
     from hpfx.solve import hosting_capacity_sweep
     s, net, _ = _setup(h_max=25, coupled=True)
     lib = _library(s)

@@ -95,7 +95,7 @@ def test_mesh_subset():
 
 
 def test_hosting_capacity_at_scale():
-    """BASELINE headline shape: thousands of random EV-penetration
+    """Hosting-capacity shape: thousands of random EV-penetration
     scenarios swept over the full mesh with a global aggregate."""
     import numpy as np
     cfg = ("net2", 5, True)

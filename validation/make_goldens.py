@@ -3,7 +3,7 @@
 This script executes the unmodified reference solver
 (/root/reference/Harmonic Power Flow/hcne_generalized.py) in-process and records
 its outputs (voltages, THD, mismatches, Jacobians, iteration counts) as .npz
-fixtures under validation/goldens/.  The new TPU-native framework (hpfx) is
+fixtures under validation/goldens/.  The new framework (hpfx) is
 tested for 1e-8 parity against these fixtures.
 
 Notes
